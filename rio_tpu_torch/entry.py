@@ -1,7 +1,7 @@
-"""The placement step: scaling solve, rounding from the scaling state, quota repair.
+"""The placement steps: solve, capacity-aware rounding, exact-quota repair.
 
-Counterpart of ``__graft_entry__.entry`` and of the step that ``bench.py``'s
-solve tier times (``_solve_rate.step``):
+:func:`placement_step` is the counterpart of ``__graft_entry__.entry`` and of
+the step that ``bench.py``'s solve tier times (``_solve_rate.step``):
 
 1. a scaling-form Sinkhorn solve (:func:`~rio_tpu_torch.ops.scaling.scaling_core_auto`:
    the fused CUDA kernel on the card, the eager loop on the CPU);
@@ -10,6 +10,11 @@ solve tier times (``_solve_rate.step``):
    whole or in row chunks;
 3. largest-remainder exact-quota repair
    (:func:`~rio_tpu_torch.ops.sinkhorn.exact_quota_repair`).
+
+:func:`logdomain_placement_step` is the same step in the log domain: the
+solve is :func:`~rio_tpu_torch.ops.pallas_sinkhorn.pallas_sinkhorn` (one
+launch of the fused log-domain kernel per iteration on the card) and the
+rounding reads the potentials (:func:`round_from_potentials`).
 
 Everything runs on CUDA unless the caller passes ``device="cpu"``.
 """
@@ -21,8 +26,14 @@ import functools
 import torch
 
 from .device import resolve_device
+from .ops.pallas_sinkhorn import pallas_sinkhorn
 from .ops.scaling import scaling_core_auto
-from .ops.sinkhorn import exact_quota_repair, normalize_marginals, plan_rounded_assign_from_scaling
+from .ops.sinkhorn import (
+    exact_quota_repair,
+    normalize_marginals,
+    plan_rounded_assign,
+    plan_rounded_assign_from_scaling,
+)
 
 # Rows per block of the row-marginal check (bounds its float32 temporary).
 _ERR_BLOCK_ROWS = 65536
@@ -59,37 +70,56 @@ def row_marginal_err(K, u, v, mass, cap) -> torch.Tensor:
     return err
 
 
+def _by_row_chunks(n: int, chunk: int | None, round_rows) -> torch.Tensor:
+    """``round_rows(rows)`` over all ``n`` rows at once, or per block of ``chunk`` rows.
+
+    Per-chunk rounding ranks each chunk's rows on their own, as ``bench.py``
+    does. That equals global ranking only because every row here is real
+    with identical mass (each chunk spreads over the same marginals); mixed
+    masses or padding split across chunks would need an explicit rank
+    offset. ``n`` must be a multiple of ``chunk``.
+    """
+    if chunk is None:
+        return round_rows(slice(None))
+    if n % chunk:
+        raise ValueError(f"{n} rows are not a multiple of chunk={chunk}")
+    return torch.cat([round_rows(slice(i, i + chunk)) for i in range(0, n, chunk)])
+
+
 def round_from_scaling(K, u, v, *, chunk: int | None = None) -> torch.Tensor:
     """Step 2: CDF rounding of the plan ``diag(u) K diag(v)``, whole or in row chunks.
 
-    ``chunk=None`` rounds all rows at once. With ``chunk`` the rounding runs
-    per block of ``chunk`` rows with per-chunk quantile ranks, as
-    ``bench.py`` does; that equals global ranking only because every row
-    here is real with identical mass (each chunk spreads over the same
-    marginals) — mixed masses or padding split across chunks would need an
-    explicit rank offset. ``n`` must be a multiple of ``chunk``.
+    ``chunk`` as in :func:`_by_row_chunks`.
     """
-    n = K.shape[0]
-    if chunk is None:
-        return plan_rounded_assign_from_scaling(K, u, v)
-    if n % chunk:
-        raise ValueError(f"{n} rows are not a multiple of chunk={chunk}")
-    return torch.cat(
-        [
-            plan_rounded_assign_from_scaling(K[i : i + chunk], u[i : i + chunk], v)
-            for i in range(0, n, chunk)
-        ]
+    return _by_row_chunks(
+        K.shape[0], chunk, lambda rows: plan_rounded_assign_from_scaling(K[rows], u[rows], v)
     )
+
+
+def round_from_potentials(cost, f, g, eps: float, *, chunk: int | None = None) -> torch.Tensor:
+    """CDF rounding of the plan ``exp((f + g - C)/eps)``, whole or in row chunks.
+
+    :func:`round_from_scaling` for a log-domain solve, over
+    :func:`~rio_tpu_torch.ops.sinkhorn.plan_rounded_assign`; chunks bound
+    its softmax and cumsum temporaries to ``chunk`` rows (see
+    :func:`_by_row_chunks`).
+    """
+    return _by_row_chunks(
+        cost.shape[0], chunk, lambda rows: plan_rounded_assign(cost[rows], f[rows], g, eps)
+    )
+
+
+def repair_to_quota(assignment, cost, cap):
+    """Exact-quota repair to ``cap``'s share of the rows: ``(assignment, mean_cost)``."""
+    expected = cap / cap.sum().clamp_min(1e-30) * assignment.shape[0]
+    assignment = exact_quota_repair(assignment, expected)
+    return assignment, cost.gather(1, assignment[:, None].long()).mean()
 
 
 def round_and_repair(cost, mass, cap, u, v, K, *, chunk: int | None = None):
     """Steps 2 and 3 on a solve's state: ``(assignment, mean_cost, row_marginal_err)``."""
-    n = K.shape[0]
     err = row_marginal_err(K, u, v, mass, cap)
-    assignment = round_from_scaling(K, u, v, chunk=chunk)
-    expected = cap / cap.sum().clamp_min(1e-30) * n
-    assignment = exact_quota_repair(assignment, expected)
-    mean_cost = cost.gather(1, assignment[:, None].long()).mean()
+    assignment, mean_cost = repair_to_quota(round_from_scaling(K, u, v, chunk=chunk), cost, cap)
     return assignment, mean_cost, err
 
 
@@ -118,6 +148,35 @@ def placement_step(
         cost, mass, cap, eps=eps, n_iters=n_iters, kernel_dtype=kernel_dtype
     )
     return round_and_repair(cost, mass, cap, u, v, K, chunk=chunk)
+
+
+def logdomain_placement_step(
+    cost: torch.Tensor,
+    mass: torch.Tensor,
+    cap: torch.Tensor,
+    *,
+    eps: float = 0.05,
+    n_iters: int = 30,
+    chunk: int | None = None,
+    device=None,
+):
+    """Place ``n`` objects on ``m`` nodes in the log domain: ``(assignment, mean_cost, err)``.
+
+    Solve with :func:`~rio_tpu_torch.ops.pallas_sinkhorn.pallas_sinkhorn`
+    (the JAX ``pallas_sinkhorn``, a drop-in for ``sinkhorn`` in the dense
+    log-domain solve-round-repair core of ``JaxObjectPlacement.rebalance``,
+    and the solver of ``tpu_pallas_check.py``'s ``pallas_logdomain`` lane),
+    round from the potentials (:func:`round_from_potentials`), then repair
+    to the exact quotas of ``cap``. ``assignment`` and ``mean_cost`` are as
+    in :func:`placement_step`; ``err`` is the solve's L1 column-marginal
+    error. Inputs move to the resolved device.
+    """
+    dev = resolve_device(device)
+    cost, mass, cap = (t.to(dev) for t in (cost, mass, cap))
+    res = pallas_sinkhorn(cost, mass, cap, eps=eps, n_iters=n_iters)
+    rounded = round_from_potentials(cost, res.f, res.g, eps, chunk=chunk)
+    assignment, mean_cost = repair_to_quota(rounded, cost, cap)
+    return assignment, mean_cost, res.err
 
 
 def entry(device=None):

@@ -15,10 +15,11 @@ Each name is its ``rio_tpu.ops`` counterpart's, except for the kernel path:
 ``fused_scaling_core``          ``pallas_scaling_core``
 ``fused_scaling_sinkhorn``      ``pallas_scaling_sinkhorn``
 ``scaling_impl_for``            ``scaling_impl_for`` (takes a device)
+``fused_iteration``             ``fused_iteration`` (Pallas; here a CUDA
+                                kernel, plain twin ``fused_iteration_ref``)
+``pallas_sinkhorn``             ``pallas_sinkhorn`` (no ``block_rows`` or
+                                ``interpret``: nothing is padded)
 ==============================  =========================================
-
-``rio_tpu.ops``' log-domain Pallas kernel (``fused_iteration``,
-``pallas_sinkhorn``) is not ported yet.
 """
 
 from .assignment import (
@@ -28,6 +29,7 @@ from .assignment import (
     integer_fair_quotas,
     residual_capacity_assign,
 )
+from .pallas_sinkhorn import fused_iteration, fused_iteration_ref, pallas_sinkhorn
 from .scaling import (
     fused_scaling_core,
     fused_scaling_iteration,
@@ -49,6 +51,9 @@ from .sinkhorn import (
 
 __all__ = [
     "SinkhornResult",
+    "fused_iteration",
+    "fused_iteration_ref",
+    "pallas_sinkhorn",
     "fused_scaling_core",
     "fused_scaling_iteration",
     "fused_scaling_iteration_ref",

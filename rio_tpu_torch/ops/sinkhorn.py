@@ -44,6 +44,14 @@ def normalize_marginals(row_mass: torch.Tensor, col_capacity: torch.Tensor):
     return a, b
 
 
+def log_marginals(a: torch.Tensor, b: torch.Tensor):
+    """``(log a, log b)`` of normalized marginals, -inf where a mass is 0."""
+    return (
+        torch.where(a > 0, _safe_log(a), _NEG_INF),
+        torch.where(b > 0, _safe_log(b), _NEG_INF),
+    )
+
+
 def marginal_err(
     cost: torch.Tensor, f: torch.Tensor, g: torch.Tensor, b: torch.Tensor, eps: float
 ) -> torch.Tensor:
@@ -80,8 +88,7 @@ def sinkhorn(
     """
     cost = cost.float()
     a, b = normalize_marginals(row_mass, col_capacity)
-    log_a = torch.where(a > 0, _safe_log(a), _NEG_INF)
-    log_b = torch.where(b > 0, _safe_log(b), _NEG_INF)
+    log_a, log_b = log_marginals(a, b)
     finite_a = torch.isfinite(log_a)
     finite_b = torch.isfinite(log_b)
 

@@ -36,6 +36,30 @@ Phases, each printing one JSON line:
    yardstick that the port never calls (``torch.mv`` twice for the scaling kernel;
    two ``torch.logsumexp`` sweeps for the log-domain kernel), each over batches of
    calls; each step and its stages.
+12. the ``directory`` group: ``TorchObjectPlacement`` on the card at 1,048,576 objects
+   x 1,024 nodes (``node_axis_size=1024``, eps 0.05, 30 iterations, move_cost 0.5;
+   ``bench.py``'s ``_incremental_rate`` kills 3% of nodes), each phase printing its
+   wall ms after ``torch.cuda.synchronize()``, ``stats.mode``, ``stats.solve_ms``,
+   ``moved`` and ``displaced``, and the launch counts of both kernels over the phase
+   (0: the directory reaches neither kernel):
+
+   - ``directory_assign``: ``sync_members`` with 1,024 members, ``assign_batch`` of
+     1,048,576 new ObjectIds (4 chunks); every node holds exactly 1,024;
+   - ``directory_full``: an establishing ``rebalance(delta=False)`` in mode
+     ``sinkhorn+collapsed`` (``auto`` on CUDA) that moves nothing; 30 nodes die; a
+     timed ``rebalance(delta=False)``: every live node at an integer fair quota (the
+     multiset of ``integer_fair_quotas``, each node at the floor or ceiling of its
+     share), dead nodes empty, moved = the dead nodes' population, no undisplaced move;
+   - ``directory_delta``: one more node dies; ``rebalance()`` in mode
+     ``sinkhorn+delta``, no undisplaced move, transport-cost ratio <= 1 + 1e-6;
+   - ``directory_dense``: ``mode="scaling"`` with an ``object_costs`` hook of seeded
+     weights in [1, 16): the same kill, ``rebalance(delta=False)`` in mode ``scaling``
+     (the dense priced solve) at integer fair quotas; peak device memory;
+   - ``directory_greedy``: the same kill under ``mode="greedy"``, timed; dead nodes
+     empty, every live node within 2 of every other;
+   - ``directory_standbys``: ``assign_standbys(k=1)`` on 65,536 objects of the
+     ``directory_full`` provider: no standby on its object's primary, every seat on a
+     live node.
 
 Then the ``kernels`` line and, last, ``{"ok": true, "device": {...}}``. Any failed
 check raises, so the script exits non-zero and prints no result. Without a CUDA
@@ -50,6 +74,7 @@ Neither kernel uses atomics.
 
 from __future__ import annotations
 
+import asyncio
 import json
 import re
 import statistics
@@ -69,6 +94,9 @@ RTOL_STEP = 1e-3
 # TOL_STEP (1 + |ref|) after 30.
 TOL_LOGDOMAIN = 1e-4
 TOL_LOGDOMAIN_STEP = 1e-3
+# The directory group: bench.py's _incremental_rate shape (3% of nodes dead).
+DIR_OBJ, DIR_NODES, DIR_KILL, DIR_MOVE_COST = 1 << 20, 1024, 30, 0.5
+STANDBY_OBJ = 65536
 
 
 def emit(phase: str, **fields) -> None:
@@ -124,6 +152,209 @@ def cuda_median_ms(fn, reps: int, warmup: int = 2, batch: int = 1) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / batch)
     return statistics.median(times)
+
+
+class _Member:
+    """What ``sync_members`` reads of a membership row."""
+
+    def __init__(self, address: str, active: bool) -> None:
+        self.address = address
+        self.active = active
+
+
+async def directory_phases(dev, card: dict) -> dict:
+    """The ``directory`` group (phase 12): returns the times it printed."""
+    import numpy as np
+    import torch
+
+    from rio_tpu_torch.object_placement.torch_placement import TorchObjectPlacement
+    from rio_tpu_torch.ops import integer_fair_quotas
+    from rio_tpu_torch.ops import scaling as S
+    from rio_tpu_torch.ops.pallas_sinkhorn import fused_iteration
+    from rio_tpu_torch.registry import ObjectId
+
+    addrs = [f"10.{i // 256}.{i % 256}.1:5000" for i in range(DIR_NODES)]
+    rng = np.random.default_rng(0)
+    killed = sorted(int(i) for i in rng.choice(DIR_NODES, DIR_KILL, replace=False))
+    ids = [ObjectId("Dir", str(i)) for i in range(DIR_OBJ)]
+    out: dict = {}
+
+    def members(dead) -> list:
+        return [_Member(a, i not in dead) for i, a in enumerate(addrs)]
+
+    def provider(**kw) -> TorchObjectPlacement:
+        p = TorchObjectPlacement(
+            eps=EPS, n_iters=N_ITERS, move_cost=DIR_MOVE_COST, node_axis_size=DIR_NODES,
+            device=dev, **kw,
+        )
+        p.sync_members(members(()))
+        return p
+
+    def seat_array(p) -> np.ndarray:  # insertion order: aligned across calls
+        return np.fromiter(p._placements.values(), np.int64, count=p.count())
+
+    def node_counts(p) -> np.ndarray:
+        return np.bincount(seat_array(p), minlength=DIR_NODES)
+
+    def check_fair(p, dead, what: str) -> None:
+        """Dead nodes empty; live nodes at the multiset of integer_fair_quotas,
+        each at the floor or ceiling of its share (equal remainders may give
+        the extra units to other nodes than integer_fair_quotas picks)."""
+        counts = node_counts(p)
+        cap_alive = np.asarray([0.0 if i in dead else 1.0 for i in range(DIR_NODES)])
+        quota = integer_fair_quotas(cap_alive, DIR_OBJ)
+        share = DIR_OBJ / cap_alive.sum()
+        live = cap_alive > 0
+        check(int(counts[~live].sum()) == 0, f"{what}: objects left on dead nodes")
+        check(bool(np.array_equal(np.sort(counts), np.sort(quota))),
+              f"{what}: node counts are not the integer fair quotas")
+        check(bool(((counts[live] == np.floor(share)) | (counts[live] == np.ceil(share))).all()),
+              f"{what}: a node is off its fair share")
+
+    def cost_ratio(p, dead) -> float:  # bench.py's quadratic congestion ratio
+        counts = node_counts(p).astype(np.float64)
+        cap_alive = np.asarray([0.0 if i in dead else 1.0 for i in range(DIR_NODES)])
+        quota = integer_fair_quotas(cap_alive, DIR_OBJ).astype(np.float64)
+        safe = np.maximum(cap_alive, 1e-9)
+        return float(np.sum(counts**2 / safe) / max(np.sum(quota**2 / safe), 1e-9))
+
+    async def timed(coro_fn):
+        """Run one provider call with both kernel counts at 0; wall ms after a
+        device synchronize, and the counts read just after."""
+        S.fused_scaling_iteration.launches = 0
+        fused_iteration.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = await coro_fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = {"fused_scaling_iteration": S.fused_scaling_iteration.launches,
+                    "fused_iteration": fused_iteration.launches}
+        check(sum(launches.values()) == 0, f"the directory launched a kernel: {launches}")
+        return result, ms, launches
+
+    def stats_fields(p) -> dict:
+        s = p.stats
+        return {"mode": s.mode, "solve_ms": s.solve_ms, "apply_ms": s.apply_ms,
+                "moved": s.moved, "displaced": s.displaced, "residual": s.residual}
+
+    async def assign(p):
+        return await p.assign_batch(ids)
+
+    # -- directory_assign ------------------------------------------------------
+    p = provider()
+    placed, ms, launches = await timed(lambda: assign(p))
+    counts = node_counts(p)
+    check(len(placed) == DIR_OBJ and p.count() == DIR_OBJ, "assign_batch seated every object")
+    check(bool((counts == DIR_OBJ // DIR_NODES).all()),
+          f"assign_batch node counts {int(counts.min())}..{int(counts.max())}")
+    chunks = -(-DIR_OBJ // TorchObjectPlacement._MAX_PLACE_CHUNK)
+    out["assign_ms"] = ms
+    emit("directory_assign", **card, n=DIR_OBJ, m=DIR_NODES, chunks=chunks, wall_ms=ms,
+         per_node=int(counts[0]), mode=p.stats.mode, solve_ms=p.stats.solve_ms, moved=0,
+         displaced=0, launches=launches)
+    del placed
+
+    # -- directory_full --------------------------------------------------------
+    moved, settle_ms, _ = await timed(lambda: p.rebalance(delta=False))
+    check(p.stats.mode == "sinkhorn+collapsed", f"establishing solve ran {p.stats.mode}")
+    check(moved == 0, f"establishing solve moved {moved} objects")
+    settle = stats_fields(p)
+    before = seat_array(p)
+    dead = set(killed)
+    displaced = int(np.isin(before, killed).sum())
+    p.sync_members(members(dead))
+    moved, ms, launches = await timed(lambda: p.rebalance(delta=False))
+    check(p.stats.mode == "sinkhorn+collapsed", f"full solve ran {p.stats.mode}")
+    after = seat_array(p)
+    undisplaced = int(((before != after) & ~np.isin(before, killed)).sum())
+    check(moved == displaced == DIR_KILL * (DIR_OBJ // DIR_NODES),
+          f"moved {moved}, dead nodes held {displaced}")
+    check(undisplaced == 0, f"{undisplaced} undisplaced objects moved")
+    check_fair(p, dead, "full rebalance")
+    check(0.0 <= p.stats.residual < 1e-2, f"class solve residual {p.stats.residual}")
+    out["full_ms"] = ms
+    out["full_solve_ms"] = p.stats.solve_ms
+    emit("directory_full", **card, n=DIR_OBJ, m=DIR_NODES, killed=DIR_KILL, wall_ms=ms,
+         **stats_fields(p), dead_population=displaced, undisplaced_moves=undisplaced,
+         establishing={"wall_ms": settle_ms, **settle}, launches=launches)
+
+    # -- directory_delta -------------------------------------------------------
+    before = after
+    extra = next(i for i in range(DIR_NODES) if i not in dead)
+    dead.add(extra)
+    p.sync_members(members(dead))
+    moved, ms, launches = await timed(lambda: p.rebalance())
+    check(p.stats.mode == "sinkhorn+delta", f"churn solve ran {p.stats.mode}")
+    after = seat_array(p)
+    undisplaced = int(((before != after) & (before != extra)).sum())
+    ratio = cost_ratio(p, dead)
+    check(undisplaced == 0, f"{undisplaced} undisplaced objects moved")
+    check(moved == p.stats.displaced == int((before == extra).sum()), "delta moved the displaced set")
+    check(ratio <= 1.0 + 1e-6, f"transport-cost ratio {ratio}")
+    out["delta_ms"] = ms
+    out["delta_solve_ms"] = p.stats.solve_ms
+    emit("directory_delta", **card, n=DIR_OBJ, m=DIR_NODES, wall_ms=ms, **stats_fields(p),
+         undisplaced_moves=undisplaced, cost_ratio=ratio, launches=launches)
+
+    full, full_dead = p, set(dead)
+
+    # -- directory_dense -------------------------------------------------------
+    weights = np.random.default_rng(1).uniform(1.0, 16.0, DIR_OBJ).astype(np.float32)
+
+    def prices(keys):  # keys are "Dir.<i>"
+        return weights[np.fromiter((int(k[4:]) for k in keys), np.int64, count=len(keys))]
+
+    p = provider(mode="scaling", object_costs=prices)
+    await assign(p)
+    dead = set(killed)
+    displaced = int(np.isin(seat_array(p), killed).sum())
+    p.sync_members(members(dead))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    moved, ms, launches = await timed(lambda: p.rebalance(delta=False))
+    peak = torch.cuda.max_memory_allocated()
+    check(p.stats.mode == "scaling", f"priced solve ran {p.stats.mode}")
+    check_fair(p, dead, "dense rebalance")
+    out["dense_ms"] = ms
+    out["dense_solve_ms"] = p.stats.solve_ms
+    out["dense_peak_bytes"] = peak
+    emit("directory_dense", **card, n=DIR_OBJ, m=DIR_NODES, killed=DIR_KILL, wall_ms=ms,
+         **stats_fields(p), dead_population=displaced, peak_bytes=peak, launches=launches)
+    del p
+
+    # -- directory_greedy ------------------------------------------------------
+    p = provider(mode="greedy")
+    await assign(p)
+    displaced = int(np.isin(seat_array(p), killed).sum())
+    p.sync_members(members(dead))
+    moved, ms, launches = await timed(lambda: p.rebalance(delta=False))
+    check(p.stats.mode == "greedy", f"greedy solve ran {p.stats.mode}")
+    counts = node_counts(p)
+    live_counts = counts[[i for i in range(DIR_NODES) if i not in dead]]
+    check(int(counts[killed].sum()) == 0, "greedy left objects on dead nodes")
+    check(int(live_counts.max()) - int(live_counts.min()) <= 2,
+          f"greedy node counts {int(live_counts.min())}..{int(live_counts.max())}")
+    out["greedy_ms"] = ms
+    out["greedy_solve_ms"] = p.stats.solve_ms
+    emit("directory_greedy", **card, n=DIR_OBJ, m=DIR_NODES, killed=DIR_KILL, wall_ms=ms,
+         **stats_fields(p), dead_population=displaced,
+         live_counts=[int(live_counts.min()), int(live_counts.max())], launches=launches)
+    # -- directory_standbys (on the directory_full provider) -------------------
+    p, dead = full, full_dead
+    sub = ids[:STANDBY_OBJ]
+    rows, ms, launches = await timed(lambda: p.assign_standbys(sub, k=1))
+    live_idx = [i for i in range(DIR_NODES) if i not in dead]
+    live = {addrs[i] for i in live_idx}
+    primaries = await p.lookup_batch(sub)
+    check(all(len(r) == 1 for r in rows), "a standby seat went unfilled")
+    check(all(r[0] != pr for r, pr in zip(rows, primaries)), "a standby sits on its primary")
+    check(all(r[0] in live for r in rows), "a standby sits on a dead node")
+    per_node = np.bincount([p._nodes[r[0]].index for r in rows], minlength=DIR_NODES)[live_idx]
+    out["standbys_ms"] = ms
+    emit("directory_standbys", **card, n=STANDBY_OBJ, m=DIR_NODES, k=1, wall_ms=ms,
+         standbys_per_live_node=[int(per_node.min()), int(per_node.max())], launches=launches)
+    return out
 
 
 def main() -> int:
@@ -489,6 +720,12 @@ def main() -> int:
              "bound_ms": ld_bound_ms, "bound_share": ld_bound_ms / ld_kernel_ms,
              "step_ms": ld_step_ms, "stages_ms": ld_stages_ms, "peak_bytes": ld_peak,
          })
+
+    # -- 12. the directory provider -------------------------------------------
+    del cost, mass, cap, ld_res, f_ld, g_ld, a, b, u, v
+    torch.cuda.empty_cache()
+    directory = asyncio.run(directory_phases(dev, card))
+    emit("directory_times", **card, **directory)
 
     print(json.dumps({"kernels": [{
         "name": "fused_scaling_iteration",

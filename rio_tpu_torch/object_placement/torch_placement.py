@@ -1,0 +1,1512 @@
+"""TorchObjectPlacement: the directory provider of the port, solved on the card.
+
+Counterpart of ``rio_tpu/object_placement/jax_placement.py``. It implements
+the ``ObjectPlacement`` trait plus the duck-typed surface the runtime reads
+(``stats``, ``affinity_tracker``, ``assign_standbys``, ``sync_members``,
+``sync_load``, ``cordon``, ``add_churn_listener``, ``set_edge_graph``,
+``rebalance(move_sink=, delta=)``), so an unchanged ``rio_tpu`` ``Server``
+and ``PlacementDaemon`` run on it. It keeps:
+
+- a **host-mirrored directory** (dict) answering ``lookup`` in O(1) with no
+  I/O;
+- a **device solve**: batched placement of new objects through a greedy
+  waterfill biased by cached node potentials, and full re-solves in three
+  forms — the class-collapsed O(M^2) Sinkhorn
+  (:mod:`rio_tpu_torch.ops.structured`), the dense Sinkhorn or scaling
+  solve over per-object prices, and the churn-aware greedy waterfill;
+- **incremental (delta) rebalances** that re-solve only the displaced
+  objects against residual quotas, warm-started from the last plan;
+- **epoch versioning**: every mutation bumps an epoch, and a solve whose
+  snapshot epoch moved underneath it is discarded.
+
+Solves run in a worker thread over snapshots taken on the event loop. Every
+device result comes back through an explicit ``.cpu()``: that pull is the
+synchronisation point, so ``solve_ms`` includes the device's time.
+
+It runs on the CUDA device unless it is built with ``device="cpu"``.
+What a later slice ports raises ``NotImplementedError`` naming its
+ROADMAP item: ``mode="hierarchical"``, feature hooks or an
+``AffinityTracker``, a ``mesh``, ``affinity_weight > 0``, and a flat
+rebalance above ``_FLAT_REBALANCE_MAX_ROWS`` padded rows (which the JAX
+provider routes to its hierarchical solve).
+"""
+
+from __future__ import annotations
+
+import asyncio
+import logging
+import time
+from dataclasses import dataclass, field, replace
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..errors import NoSchedulableCapacity
+from ..ops import (
+    build_cost_matrix,
+    class_quotas,
+    exact_quota_repair,
+    expand_class_quotas,
+    greedy_balanced_assign,
+    integer_fair_quotas,
+    plan_rounded_assign,
+    residual_capacity_assign,
+    scaling_sinkhorn,
+    sinkhorn,
+)
+from ..ops.assignment import rank_within_group
+from ..ops.sinkhorn import route_sentinel_spill
+from ..registry import ObjectId
+from ..tracing import span
+from . import ObjectPlacement, ObjectPlacementItem, sanitize_standby_row
+
+log = logging.getLogger(__name__)
+
+# Flat rebalances above this many padded rows route, in the JAX provider,
+# to the two-level hierarchical solve. The port has no hierarchical solve
+# yet, so it refuses them (NotImplementedError) instead of running another
+# path. 1,048,576 (the BASELINE.json goal) stays on the flat paths.
+_FLAT_REBALANCE_MAX_ROWS = 1_048_576
+
+_SOLVER_MODES = ("sinkhorn", "scaling", "greedy")
+
+# What a later slice ports; each message names its ROADMAP item.
+_LATER_HIERARCHICAL = (
+    "the hierarchical solve is not ported yet "
+    "(ROADMAP A.9: parallel/hierarchical.py, then _hierarchical_solve)"
+)
+_LATER_AFFINITY = (
+    "AffinityTracker and feature hooks are not ported yet "
+    "(ROADMAP A.7: AffinityTracker with a numpy threefry for _hash_features)"
+)
+_LATER_REFINE = "the affinity refine is not ported yet (ROADMAP A.8)"
+_LATER_MESH = "mesh-sharded solves are not ported yet (ROADMAP A.11: parallel/ on torch.distributed)"
+
+
+def _next_bucket(n: int, minimum: int = 256) -> int:
+    """Pad batch sizes to power-of-two buckets (the JAX provider's shapes)."""
+    b = minimum
+    while b < n:
+        b *= 2
+    return b
+
+
+def _least_loaded_spread(load, alive, cap, n_real: int, count: int) -> np.ndarray:
+    """Deterministic seats when the solver can't provide them: REAL
+    nodes only, schedulable (alive AND capacity > 0) nodes before the
+    rest, least-loaded first — and round-robin over ONLY the
+    schedulable prefix when one exists (seating overflow on a dead,
+    cordoned, or capacity-zero node while schedulable capacity exists
+    would break cordon's no-new-seats contract and the operator's
+    capacity=0 don't-place-here signal). When NO node is schedulable
+    (the all-dead blip) every real node cycles — any real seat beats a
+    pad index. Host numpy arrays in, (count,) int32 out."""
+    if n_real <= 0:
+        raise NoSchedulableCapacity(
+            "placement solve with no registered nodes: register_node/"
+            "sync_members must run before any placement is requested"
+        )
+    a = np.asarray(alive)[:n_real]
+    c = np.asarray(cap)[:n_real]
+    sched = (a > 0) & (c > 0)
+    order = np.lexsort((np.asarray(load)[:n_real], ~sched))
+    n_sched = int(sched.sum())
+    cycle = order[:n_sched] if n_sched > 0 else order
+    return cycle[np.arange(count) % len(cycle)].astype(np.int32)
+
+
+def _route_unseatable(
+    assignment: np.ndarray, n_real: int, load: np.ndarray, alive, cap
+) -> np.ndarray:
+    """Defensive clamp: solver output must index the REAL node axis.
+
+    Solvers run over the padded power-of-two node axis; pad slots carry
+    zero capacity and are normally unreachable. If a degenerate numerical
+    case ever clips a row onto a pad slot, the row goes through the shared
+    spread instead of entering the directory (a pad index would break
+    every later ``_node_order[idx]`` resolution).
+    """
+    bad = assignment >= n_real
+    if not bad.any():
+        return assignment
+    out = assignment.copy()
+    out[bad] = _least_loaded_spread(
+        load, alive, cap, n_real, int(bad.sum())
+    ).astype(assignment.dtype)
+    return out
+
+
+def _class_refresh_device(base, counts, cap_alive, g_seed, *, mode, move_cost, eps, n_iters):
+    """Warm M x M class potential refresh: ``(g, err)`` on the device.
+
+    A plain function: the JAX provider jits it per (mode, shapes, config),
+    and eager PyTorch has nothing to trace."""
+    m = base.shape[0]
+    ccost = base[None, :].expand(m, m) - move_cost * torch.eye(
+        m, dtype=torch.float32, device=base.device
+    )
+    solver = scaling_sinkhorn if mode == "scaling" else sinkhorn
+    _f, g, err = solver(ccost, counts, cap_alive, eps=eps, n_iters=n_iters, g_init=g_seed)
+    return g, err
+
+
+# -- solver convergence telemetry helpers -------------------------------------
+
+
+def _seed_warm_ratio(seed: torch.Tensor | None) -> float:
+    """Warm fraction of a potential seed: finite entries / total.
+
+    The solvers cold-fill non-finite seed entries to zero, so the finite
+    fraction IS the warm-start hit ratio. No seed at all reads as 0.0.
+    """
+    if seed is None or seed.numel() == 0:
+        return 0.0
+    return float(torch.isfinite(seed).float().mean().cpu())
+
+
+def _conv_fields(conv: dict) -> dict:
+    """A solve's convergence record as SolveStats kwargs.
+
+    ``compile_ms`` and ``exec_ms`` keep their -1 ("unobserved"): eager
+    PyTorch compiles nothing per solve (the port's CUDA kernels are built
+    once, outside any solve), and the chunk and device fields belong to the
+    hierarchical solve, which is not ported.
+    """
+    return {
+        "solver_iters": int(conv.get("solver_iters", 0)),
+        "residual": float(conv.get("residual", -1.0)),
+        "warm_ratio": float(conv.get("warm_ratio", -1.0)),
+    }
+
+
+def _elapsed_ms(t0: float) -> float:
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _apply_class_quotas(quotas: np.ndarray, cur_idx: np.ndarray) -> np.ndarray:
+    """Expand (M x M) class quotas into a per-object assignment, O(N + M^2).
+
+    Objects within a class (= current seat) are interchangeable, so laying
+    each class's own column FIRST keeps ``quotas[k, k]`` objects exactly
+    where they are — the host reference of
+    :func:`rio_tpu_torch.ops.structured.expand_class_quotas`.
+    """
+    m = quotas.shape[0]
+    out = np.empty(cur_idx.shape[0], np.int32)
+    order = np.argsort(cur_idx, kind="stable")
+    counts = np.bincount(cur_idx, minlength=m)
+    start = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    all_cols = np.arange(m)
+    for k in range(m):
+        c = int(counts[k])
+        if c == 0:
+            continue
+        cols = np.concatenate([[k], np.delete(all_cols, k)])
+        targets = np.repeat(cols, quotas[k][cols])
+        if targets.shape[0] < c:  # belt-and-braces vs float drift upstream
+            targets = np.concatenate(
+                [targets, np.full(c - targets.shape[0], k, np.int32)]
+            )
+        out[order[start[k] : start[k] + c]] = targets[:c]
+    return out
+
+
+# Anti-affinity penalty for the multi-seat (replica) solve: far beyond the
+# exp underflow knee relative to the default eps; the log-domain sinkhorn
+# used below is stable at any range.
+_ANTI_AFFINITY_COST = 1e4
+
+
+def _unique_rows(taken: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """``np.unique(taken, axis=0, return_inverse=True)`` for a 2-D bool array.
+
+    Each row is packed to bits (column 0 in the most significant bit) and
+    compared as one opaque byte string: byte order then equals the
+    lexicographic row order ``np.unique`` sorts by, so classes and inverse
+    are the same, without its per-column structured sort (seconds at
+    65,536 x 1,024)."""
+    packed = np.ascontiguousarray(np.packbits(taken, axis=1))
+    rows = packed.view(np.dtype((np.void, packed.shape[1]))).reshape(-1)
+    _, first, inverse = np.unique(rows, return_index=True, return_inverse=True)
+    return taken[first], inverse.reshape(-1)
+
+
+def multi_seat_plan(
+    primary_idx: np.ndarray,
+    k: int,
+    load: np.ndarray,
+    cap: np.ndarray,
+    alive: np.ndarray,
+    *,
+    eps: float = 0.05,
+    n_iters: int = 30,
+    device: str | torch.device | None = None,
+) -> np.ndarray:
+    """K standby seats per object under hard anti-affinity.
+
+    Every object with the same *forbidden set* (primary + seats chosen in
+    earlier rounds) has an identical cost row, so each of the K rounds is a
+    class-collapsed ``(C x M)`` solve, not an ``(N x M)`` one. Each round
+    runs the log-domain :func:`rio_tpu_torch.ops.sinkhorn.sinkhorn` on
+    ``device`` (CUDA unless ``"cpu"`` is named) over the class cost with
+    ``_ANTI_AFFINITY_COST`` on forbidden columns, then rounds each class's
+    soft plan row to integer seat quotas by largest remainder. Forbidden
+    columns are zeroed before rounding, so a primary and its standbys can
+    NEVER co-locate; classes with no schedulable allowed column get their
+    seat back as -1 (degraded replication, never a violation).
+
+    Returns an ``(n, k)`` int32 array of node indices, -1 for unfillable
+    seats. Pure function of its host snapshot inputs.
+    """
+    dev = resolve_device(device)
+    primary_idx = np.asarray(primary_idx, np.int64)
+    n = int(primary_idx.shape[0])
+    m = int(cap.shape[0])
+    seats = np.full((n, k), -1, np.int32)
+    if n == 0 or k <= 0:
+        return seats
+    load = np.asarray(load, np.float32).copy()
+    cap_alive = np.asarray(cap, np.float32) * (np.asarray(alive, np.float32) > 0)
+    taken = np.zeros((n, m), bool)
+    has_primary = (primary_idx >= 0) & (primary_idx < m)
+    taken[np.arange(n)[has_primary], primary_idx[has_primary]] = True
+    for r in range(k):
+        classes, inverse = _unique_rows(taken)
+        counts = np.bincount(inverse, minlength=classes.shape[0]).astype(np.float32)
+        allowed = (~classes) & (cap_alive > 0)[None, :]
+        solvable = allowed.any(axis=1)
+        if not solvable.any():
+            break
+        # Load-aware base cost (fill ratio) + the anti-affinity wall.
+        fill = load / np.maximum(cap_alive, 1e-6)
+        cost = np.where(allowed, fill[None, :], _ANTI_AFFINITY_COST).astype(np.float32)
+        res = sinkhorn(
+            torch.from_numpy(cost).to(dev),
+            torch.from_numpy((counts * solvable).astype(np.float32)).to(dev),
+            torch.from_numpy(cap_alive).to(dev),
+            eps=eps,
+            n_iters=n_iters,
+        )
+        f = res.f.cpu().numpy().astype(np.float64)[:, None]
+        g = res.g.cpu().numpy().astype(np.float64)[None, :]
+        with np.errstate(invalid="ignore"):
+            expo = np.where(np.isfinite(f) & np.isfinite(g), f + g - cost, -np.inf)
+        weights = np.exp(np.clip(expo / eps, -80.0, 80.0)) * allowed
+        for c in np.nonzero(solvable)[0]:
+            rows_c = np.nonzero(inverse == c)[0]
+            w = weights[c]
+            if w.sum() <= 0:
+                w = allowed[c].astype(np.float64)
+            share = w / w.sum() * rows_c.shape[0]
+            quota = np.floor(share).astype(np.int64)
+            short = rows_c.shape[0] - int(quota.sum())
+            if short > 0:
+                rem_order = np.argsort(-(share - quota), kind="stable")
+                quota[rem_order[:short]] += 1
+            targets = np.repeat(np.arange(m), quota)[: rows_c.shape[0]]
+            seats[rows_c, r] = targets
+            taken[rows_c, targets] = True
+            np.add.at(load, targets, 1.0)
+    return seats
+
+
+@dataclass
+class _NodeSlot:
+    address: str
+    capacity: float = 1.0
+    alive: bool = True
+    cordoned: bool = False  # drained: serving, but priced out of the solver
+    load: float = 0.0
+    index: int = 0
+    # Measured-load capacity multiplier from sync_load (ClusterLoadView):
+    # 1.0 idle, down to 0.1 for an overloaded node, quantized so per-second
+    # load reports don't thrash the solve epoch.
+    reported_derate: float = 1.0
+
+
+@dataclass
+class PlanState:
+    """The previous committed solve, persisted as a first-class object.
+
+    A churn event re-solves ONLY the displaced + new objects against the
+    plan's residual capacity, warm-starting the Sinkhorn potentials from
+    here (see ``_delta_solve``). The full solve remains the fallback when
+    the displaced fraction exceeds ``delta_threshold``, after
+    ``max_delta_solves`` consecutive deltas, or when the transport-cost
+    audit trips (``stale``). Immutable after construction and atomically
+    swapped on ``self._plan`` under the provider lock.
+    """
+
+    # (node_axis,) node potentials of the committing solve (a tensor on the
+    # provider's device; None for solves that produce none, e.g. greedy).
+    g: torch.Tensor | None
+    # (node_axis,) PLANNED per-node seat counts at commit (diagnostic).
+    seat_counts: np.ndarray
+    epoch: int  # directory epoch the plan was committed at
+    liveness_fp: frozenset  # schedulable node indices at commit
+    delta_solves: int = 0  # consecutive deltas since the last full solve
+    stale: bool = False  # quality audit tripped: next solve goes full
+
+
+@dataclass
+class SolveStats:
+    """Diagnostics from the last re-solve (field for field the JAX provider's)."""
+
+    n_objects: int = 0
+    n_nodes: int = 0
+    solve_ms: float = 0.0
+    apply_ms: float = 0.0  # mover-only directory update (host, under lock)
+    moved: int = 0
+    # Objects the solve actually re-solved: the displaced set for a
+    # "*+delta" solve, the whole directory for a full one.
+    displaced: int = 0
+    epoch: int = 0
+    mode: str = "none"
+    discarded: bool = False
+    # -1 means "not applicable / unobserved" (greedy has no residual; the
+    # port observes no compile time) — never 0, which reads as perfect.
+    solver_iters: int = 0  # configured iterations (fixed-length loops)
+    residual: float = -1.0  # final L1 column-marginal violation
+    warm_ratio: float = -1.0  # finite fraction of the warm-start seed
+    compile_ms: float = -1.0  # compile share of solve_ms
+    exec_ms: float = -1.0  # solve_ms minus compile_ms
+    chunks: int = 0  # chunked-hierarchical chunk count (0 = unchunked)
+    chunk_ms: list = field(default_factory=list)  # per-chunk wall ms
+    devices: int = 0  # mesh devices of a hierarchical solve (0 = not one)
+    # Bounded record of prior completed solves (most recent last, each with
+    # an empty history of its own).
+    history: list = field(default_factory=list)
+
+    HISTORY_LIMIT = 32
+
+    def history_gauges(self) -> dict[str, float]:
+        """Rolling solve-history summary, scrape-ready (the JAX gauge names)."""
+        window = [*self.history, self] if self.mode != "none" else list(self.history)
+        out = {"rio.placement_solve.history.len": float(len(window))}
+        if not window:
+            return out
+        solves = [float(s.solve_ms) for s in window]
+        out["rio.placement_solve.history.solve_ms_last"] = solves[-1]
+        out["rio.placement_solve.history.solve_ms_mean"] = sum(solves) / len(solves)
+        out["rio.placement_solve.history.solve_ms_max"] = max(solves)
+        out["rio.placement_solve.history.moved_total"] = float(
+            sum(int(s.moved) for s in window)
+        )
+        out["rio.placement_solve.history.delta_fraction"] = sum(
+            1.0 for s in window if "delta" in str(s.mode)
+        ) / len(window)
+        out["rio.placement_solve.history.discarded_total"] = float(
+            sum(1 for s in window if s.discarded)
+        )
+        residuals = [float(s.residual) for s in window if s.residual >= 0.0]
+        if residuals:
+            out["rio.placement_solve.history.residual_last"] = residuals[-1]
+            out["rio.placement_solve.history.residual_max"] = max(residuals)
+        compiles = [float(s.compile_ms) for s in window if s.compile_ms >= 0.0]
+        if compiles:
+            out["rio.placement_solve.history.compile_ms_total"] = sum(compiles)
+        chunked = [s for s in window if int(s.chunks) > 0]
+        if chunked:
+            out["rio.placement_solve.history.chunks_last"] = float(chunked[-1].chunks)
+            out["rio.placement_solve.history.chunks_max"] = float(
+                max(int(s.chunks) for s in chunked)
+            )
+        meshed = [s for s in window if int(getattr(s, "devices", 0)) > 0]
+        if meshed:
+            out["rio.placement_solve.history.devices_last"] = float(meshed[-1].devices)
+        first_chunks = [float(s.chunk_ms[0]) for s in window if s.chunk_ms]
+        if first_chunks:
+            out["rio.placement_solve.history.first_chunk_ms_last"] = first_chunks[-1]
+            out["rio.placement_solve.history.first_chunk_ms_max"] = max(first_chunks)
+        return out
+
+
+class TorchObjectPlacement(ObjectPlacement):
+    """Batched, device-solved object directory (drop-in ObjectPlacement)."""
+
+    def __init__(
+        self,
+        *,
+        eps: float = 0.05,
+        n_iters: int = 30,
+        mode: str = "auto",
+        mesh=None,
+        node_axis_size: int = 64,
+        move_cost: float = 0.5,
+        obj_features=None,
+        node_features=None,
+        affinity_tracker=None,
+        object_costs=None,
+        delta_threshold: float = 0.25,
+        max_delta_solves: int = 8,
+        delta_audit_ratio: float = 1.05,
+        affinity_weight: float = 0.0,
+        device: str | torch.device | None = None,
+    ) -> None:
+        if mode == "hierarchical":
+            raise NotImplementedError(_LATER_HIERARCHICAL)
+        if mode != "auto" and mode not in _SOLVER_MODES:
+            raise ValueError(f"unknown placement mode {mode!r}")
+        if obj_features is not None or node_features is not None or affinity_tracker is not None:
+            raise NotImplementedError(_LATER_AFFINITY)
+        if mesh is not None:
+            raise NotImplementedError(_LATER_MESH)
+        if affinity_weight > 0.0:
+            raise NotImplementedError(_LATER_REFINE)
+        self.device = resolve_device(device)
+        self._eps = eps
+        self._n_iters = n_iters
+        # Incremental (delta) rebalance knobs: a churn re-solve goes
+        # through the delta path while the displaced fraction stays at or
+        # below delta_threshold (0 disables deltas entirely), falls back
+        # to a full solve after max_delta_solves consecutive deltas, and
+        # whenever the transport-cost audit finds the delta plan worse than
+        # delta_audit_ratio x the ideal quota cost.
+        self._delta_threshold = delta_threshold
+        self._max_delta_solves = max_delta_solves
+        self._delta_audit_ratio = delta_audit_ratio
+        self._mode = mode
+        # Stay-put discount applied to each object's CURRENT seat during a
+        # full re-solve: with move_cost/eps >> 1 only capacity pressure
+        # (dead nodes, skew) moves anything.
+        self._move_cost = move_cost
+        # The Server wires AffinityTracker.observe when a provider carries
+        # one; this provider never does (yet).
+        self.affinity_tracker = None
+        # Per-object move prices (keys -> (n,) weights, 1.0 = baseline):
+        # non-uniform weights route flat solves through the dense pipeline.
+        self._object_costs = object_costs
+        # (src, dst) -> normalized byte-rate weight, stored for the affinity
+        # refine of a later slice (set_edge_graph).
+        self._edge_graph: dict[tuple[str, str], float] = {}
+        # Host-mirrored directory: "{type}.{id}" -> node index.
+        self._placements: dict[str, int] = {}
+        # Replica rows: "{type}.{id}" -> (standby addresses, epoch).
+        self._standby_rows: dict[str, tuple[list[str], int]] = {}
+        # Per-node key index (node index -> keys): keeps clean_server and
+        # load recounts O(objects-on-node).
+        self._by_node: dict[int, set[str]] = {}
+        self._nodes: dict[str, _NodeSlot] = {}
+        self._node_order: list[str] = []  # index -> address (never shrinks)
+        self._node_axis = node_axis_size  # static node axis (padded)
+        self._epoch = 0
+        self._g: torch.Tensor | None = None  # cached node potentials (padded axis)
+        # Schedulable node indices the cached potentials were solved over
+        # (see _invalidate_potentials).
+        self._g_fp: frozenset | None = None
+        self._plan: PlanState | None = None
+        self._churn_listeners: list = []
+        self._lock = asyncio.Lock()
+        self.stats = SolveStats()
+
+    def _solver_mode(self) -> str:
+        """Resolve ``mode="auto"``: ``"sinkhorn"`` on a CUDA device,
+        ``"greedy"`` on the CPU.
+
+        The JAX provider makes the same accelerator/host split on
+        ``jax.default_backend()``. On the card a full rebalance at
+        1,048,576 x 1,024 is the class-collapsed Sinkhorn (an M x M solve
+        plus O(N log N) expansion and repair on the device); on a host CPU
+        the O(N log M) greedy waterfill is the cheaper default. The times
+        behind the rule are ``chip_smoke.py``'s ``directory_full`` and
+        ``directory_greedy`` phases (``PERF.md``).
+        """
+        if self._mode == "auto":
+            self._mode = "sinkhorn" if self.device.type == "cuda" else "greedy"
+        return self._mode
+
+    def _archived_history(self) -> list:
+        """Current stats (if any solve/attempt happened) appended to its
+        own history, flattened and bounded. Lock held by callers."""
+        prior = self.stats
+        if not prior.epoch:  # the never-solved default carries no event
+            return []
+        return (prior.history + [replace(prior, history=[])])[
+            -SolveStats.HISTORY_LIMIT:
+        ]
+
+    # -------------------------------------------- potentials / churn events
+    def _sched_fp(self) -> frozenset:
+        """Indices of nodes that can take NEW seats right now (alive, not
+        cordoned, capacity > 0)."""
+        return frozenset(
+            s.index
+            for s in self._nodes.values()
+            if s.alive and not s.cordoned and s.capacity > 0
+        )
+
+    def _invalidate_potentials(self) -> None:
+        """Keep ``_g`` while every node it was solved over stays
+        schedulable (churn on unrelated nodes leaves their entries at -inf,
+        so the warm ``assign_batch`` path never seats there until the next
+        solve); drop it when a solved-over node leaves the schedulable set."""
+        if self._g is None:
+            return
+        if self._g_fp is None or not (self._g_fp <= self._sched_fp()):
+            self._g = None
+            self._g_fp = None
+
+    def add_churn_listener(self, cb) -> None:
+        """Register a zero-arg callable fired after every liveness-affecting
+        change (``sync_members`` flips, ``cordon``/``uncordon``,
+        ``clean_server``), on the event loop; listeners must only flag or
+        schedule, never block."""
+        self._churn_listeners.append(cb)
+
+    def _notify_churn(self) -> None:
+        for cb in list(self._churn_listeners):
+            try:
+                cb()
+            except Exception:  # noqa: BLE001 - listeners never break liveness
+                log.exception("churn listener failed")
+
+    # ------------------------------------------------- directory internals
+    def _set_placement(self, key: str, idx: int) -> bool:
+        """Point ``key`` at node ``idx`` keeping the per-node index in sync.
+
+        Returns True when the placement actually changed (lock held).
+        """
+        old = self._placements.get(key)
+        if old == idx:
+            return False
+        if old is not None:
+            self._by_node.get(old, set()).discard(key)
+        self._placements[key] = idx
+        self._by_node.setdefault(idx, set()).add(key)
+        return True
+
+    def _drop_placement(self, key: str) -> int | None:
+        idx = self._placements.pop(key, None)
+        if idx is not None:
+            self._by_node.get(idx, set()).discard(key)
+        return idx
+
+    def _set_standby_row(self, key: str, addresses: list[str], epoch: int) -> None:
+        self._standby_rows[key] = (list(addresses), epoch)
+
+    def _drop_standby_row(self, key: str) -> None:
+        self._standby_rows.pop(key, None)
+
+    # ---------------------------------------------------------------- nodes
+    def _node_index(self, address: str) -> int:
+        slot = self._nodes.get(address)
+        if slot is None:
+            idx = len(self._node_order)
+            if idx >= self._node_axis:
+                # Grow the static node axis (rare). Cached potentials AND
+                # the incremental plan carry old-axis shapes — both go.
+                self._node_axis *= 2
+                self._g = None
+                self._g_fp = None
+                self._plan = None
+            slot = _NodeSlot(address=address, index=idx)
+            self._nodes[address] = slot
+            self._node_order.append(address)
+            self._epoch += 1
+        return slot.index
+
+    def register_node(self, address: str, *, capacity: float = 1.0) -> None:
+        self._node_index(address)
+        self._nodes[address].capacity = capacity
+        self._nodes[address].alive = True
+
+    def sync_members(self, members) -> None:
+        """Feed gossip liveness into the cost model.
+
+        ``members`` is an iterable of objects with ``address`` (a property
+        or a method) and ``active``, or of address strings. Unknown members
+        are registered; known members get their liveness updated. Dead
+        nodes keep their index but are priced out of the cost.
+        """
+        seen = set()
+        changed = False
+        for m in members:
+            addr = getattr(m, "address", None)
+            if callable(addr):
+                addr = addr()
+            if addr is None:
+                addr = str(m)
+            active = bool(getattr(m, "active", True))
+            seen.add(addr)
+            if addr not in self._nodes:
+                self._node_index(addr)
+                changed = True
+            slot = self._nodes[addr]
+            if slot.alive != active:
+                slot.alive = active
+                changed = True
+        for addr, slot in self._nodes.items():
+            if addr not in seen and slot.alive:
+                slot.alive = False
+                changed = True
+        if changed:
+            self._epoch += 1
+            self._invalidate_potentials()
+            self._notify_churn()
+
+    # Derates quantize to 1/8 steps so per-tick load reports don't bump the
+    # epoch (and discard in-flight solves) on every call.
+    _DERATE_STEP = 8.0
+
+    def sync_load(self, view) -> None:
+        """Feed measured cluster load (a ``ClusterLoadView``: ``derate(addr)``)
+        into the cost model: each node's capacity column becomes
+        ``capacity * derate``. ``view=None`` resets every node."""
+        changed = False
+        for addr, slot in self._nodes.items():
+            d = 1.0 if view is None else float(view.derate(addr))
+            if not (d == d):  # NaN guard
+                d = 1.0
+            d = min(1.0, max(0.1, d))
+            q = round(d * self._DERATE_STEP) / self._DERATE_STEP
+            if q != slot.reported_derate:
+                slot.reported_derate = q
+                changed = True
+        if changed:
+            self._epoch += 1
+            # Derates floor at 0.1: no node leaves the schedulable set here.
+            self._invalidate_potentials()
+
+    # --------------------------------------------------------------- drain
+    def cordon(self, address: str) -> None:
+        """Drain a node gracefully: it keeps serving its current objects,
+        but the solver prices it like a dead node (no NEW seats), and the
+        next ``rebalance()`` re-seats its population."""
+        slot = self._nodes.get(address)
+        if slot is None:
+            raise KeyError(f"unknown node {address!r}")
+        if slot.cordoned:
+            return
+        others = any(
+            s.alive and not s.cordoned and s.capacity > 0
+            for a, s in self._nodes.items()
+            if a != address
+        )
+        if not others:
+            raise RuntimeError(
+                f"refusing to cordon {address!r}: no other schedulable "
+                f"node would remain"
+            )
+        slot.cordoned = True
+        self._epoch += 1
+        self._invalidate_potentials()
+        self._notify_churn()
+
+    def uncordon(self, address: str) -> None:
+        slot = self._nodes.get(address)
+        if slot is None:
+            raise KeyError(f"unknown node {address!r}")
+        if slot.cordoned:
+            slot.cordoned = False
+            self._epoch += 1
+            self._invalidate_potentials()
+            self._notify_churn()
+
+    @property
+    def cordoned(self) -> set[str]:
+        return {a for a, s in self._nodes.items() if s.cordoned}
+
+    # ------------------------------------------------------- node vectors
+    def _node_arrays(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """``(load, cap, alive)`` over the padded node axis, host float32.
+
+        Capacity is ``capacity * derate``; cordoned nodes price exactly
+        like dead ones (no NEW seats) while their rows stand."""
+        n = self._node_axis
+        load = np.zeros((n,), np.float32)
+        cap = np.zeros((n,), np.float32)
+        alive = np.zeros((n,), np.float32)
+        for addr in self._node_order:
+            s = self._nodes[addr]
+            load[s.index] = s.load
+            cap[s.index] = s.capacity * s.reported_derate
+            alive[s.index] = 1.0 if (s.alive and not s.cordoned) else 0.0
+        return load, cap, alive
+
+    def _to_device(self, *arrays: np.ndarray) -> tuple[torch.Tensor, ...]:
+        return tuple(torch.from_numpy(np.asarray(a)).to(self.device) for a in arrays)
+
+    def _no_schedulable_capacity_host(self) -> bool:
+        """Zero schedulable capacity, from HOST node state only."""
+        return not any(
+            s.alive and not s.cordoned and s.capacity > 0
+            for s in self._nodes.values()
+        )
+
+    def _recount_loads(self) -> None:
+        for s in self._nodes.values():
+            s.load = float(len(self._by_node.get(s.index, ())))
+
+    # ------------------------------------------------------ trait: lookups
+    async def update(self, item: ObjectPlacementItem) -> None:
+        key = str(item.object_id)
+        async with self._lock:
+            if item.server_address is None:
+                self._drop_placement(key)
+            else:
+                self._set_placement(key, self._node_index(item.server_address))
+            self._epoch += 1
+
+    async def lookup(self, object_id: ObjectId) -> str | None:
+        idx = self._placements.get(str(object_id))
+        if idx is None:
+            return None
+        return self._node_order[idx]
+
+    async def clean_server(self, address: str) -> None:
+        async with self._lock:
+            slot = self._nodes.get(address)
+            if slot is None:
+                return
+            slot.alive = False
+            slot.load = 0.0  # its placements are gone; keep fair-share math honest
+            # O(objects-on-node) via the per-node index.
+            for k in list(self._by_node.get(slot.index, ())):
+                self._drop_placement(k)
+            self._by_node.pop(slot.index, None)
+            self._epoch += 1
+            self._invalidate_potentials()
+            self._notify_churn()
+
+    async def remove(self, object_id: ObjectId) -> None:
+        async with self._lock:
+            key = str(object_id)
+            if key in self._standby_rows:
+                self._drop_standby_row(key)
+            if self._drop_placement(key) is not None:
+                self._epoch += 1
+
+    def count(self) -> int:
+        return len(self._placements)
+
+    # ------------------------------------------------------- replica rows
+    async def set_standbys(self, object_id: ObjectId, addresses: list[str]) -> int:
+        key = str(object_id)
+        async with self._lock:
+            _, epoch = self._standby_rows.get(key, ([], 0))
+            if addresses or epoch:
+                self._set_standby_row(key, list(addresses), epoch)
+            elif key in self._standby_rows:
+                self._drop_standby_row(key)
+            return epoch
+
+    async def standbys(self, object_id: ObjectId) -> tuple[list[str], int]:
+        held, epoch = self._standby_rows.get(str(object_id), ([], 0))
+        return sanitize_standby_row(held, epoch)
+
+    async def promote_standby(
+        self, object_id: ObjectId, address: str, expected_epoch: int
+    ) -> int | None:
+        key = str(object_id)
+        async with self._lock:
+            held, epoch = self._standby_rows.get(key, ([], 0))
+            if epoch != expected_epoch or address not in held:
+                return None
+            self._set_standby_row(key, [a for a in held if a != address], epoch + 1)
+            self._set_placement(key, self._node_index(address))
+            self._epoch += 1
+            return epoch + 1
+
+    async def assign_standbys(
+        self, object_ids: list[ObjectId], k: int = 1
+    ) -> list[list[str]]:
+        """K anti-affinity standby seats per object (compute only — the
+        caller persists the choice through :meth:`set_standbys`).
+
+        Node vectors and primary seats are snapshotted under the lock on the
+        loop; :func:`multi_seat_plan` runs in a thread on the snapshot.
+        """
+        if not object_ids or k <= 0:
+            return [[] for _ in object_ids]
+        async with self._lock:
+            keys = [str(o) for o in object_ids]
+            primary = np.asarray([self._placements.get(key, -1) for key in keys], np.int64)
+            load, cap, alive = self._node_arrays()
+            node_order = list(self._node_order)
+            no_capacity = self._no_schedulable_capacity_host()
+        if no_capacity:
+            return [[] for _ in object_ids]
+        seats = await asyncio.to_thread(
+            multi_seat_plan, primary, k, load, cap, alive,
+            eps=self._eps, n_iters=self._n_iters, device=self.device,
+        )
+        n_real = len(node_order)
+        return [[node_order[j] for j in row if 0 <= j < n_real] for row in seats]
+
+    # ------------------------------------------------------- batched solve
+    async def lookup_batch(self, object_ids: list[ObjectId]) -> list[str | None]:
+        out: list[str | None] = []
+        for oid in object_ids:
+            idx = self._placements.get(str(oid))
+            out.append(None if idx is None else self._node_order[idx])
+        return out
+
+    async def assign_batch(self, object_ids: list[ObjectId]) -> list[str]:
+        """Place a batch of (possibly new) objects, one device solve a chunk.
+
+        Already-placed objects keep their seat; unplaced ones are waterfilled
+        onto the nodes, biased by the cached node potentials of the last OT
+        solve when there are any. The lock is taken PER CHUNK of
+        ``_MAX_PLACE_CHUNK`` keys, so other mutators interleave between
+        chunks; each chunk re-checks membership under its lock hold, and a
+        last pass under one lock hold re-places keys that a concurrent
+        ``remove``/``clean_server`` dropped between chunks.
+
+        Raises :class:`rio_tpu_torch.errors.NoSchedulableCapacity` (a
+        ``ValueError``) when no node has registered yet.
+        """
+        keys = [str(o) for o in object_ids]
+        for start in range(0, len(keys), self._MAX_PLACE_CHUNK):
+            chunk = keys[start : start + self._MAX_PLACE_CHUNK]
+            async with self._lock:
+                unplaced = [k for k in chunk if k not in self._placements]
+                if unplaced:
+                    await self._place_chunk_locked(unplaced)
+        async with self._lock:
+            missing = [k for k in keys if k not in self._placements]
+            if missing:
+                await self._place_keys_async(missing)
+            return [self._node_order[self._placements[k]] for k in keys]
+
+    # Bounds the (bucket x node_axis) working set of one placement solve.
+    # Chunk edges change the waterfill's result (it carries the updated
+    # node load into the next chunk), so the value is the JAX provider's.
+    _MAX_PLACE_CHUNK = 262_144
+
+    async def _place_keys_async(self, keys: list[str]) -> None:
+        """Chunked placement under a CALLER-held lock (straggler path)."""
+        for start in range(0, len(keys), self._MAX_PLACE_CHUNK):
+            await self._place_chunk_locked(keys[start : start + self._MAX_PLACE_CHUNK])
+
+    async def _place_chunk_locked(self, chunk: list[str]) -> None:
+        """One chunk's placement with the device solve OFF the event loop:
+        node state and potentials are snapshotted on the loop, the solve
+        runs in a thread against only those snapshots, and the host apply
+        runs back on the loop. The caller holds ``self._lock``."""
+        load, cap, alive = self._node_arrays()
+        g = self._g
+        n_real = len(self._node_order)
+        no_capacity = self._no_schedulable_capacity_host()
+        assignment = await asyncio.to_thread(
+            self._solve_chunk, chunk, load, cap, alive, g, n_real, no_capacity
+        )
+        self._apply_chunk(chunk, assignment)
+
+    def _solve_chunk(
+        self, keys, load, cap, alive, g, n_real, no_capacity=False
+    ) -> np.ndarray:
+        """Device solve for one placement chunk over loop-side snapshots
+        (host arrays in, host int32 seats out); reads NO live provider
+        state, mutates nothing."""
+        n = len(keys)
+        if no_capacity:
+            # Every node dead (or cordoned) at once: the waterfill
+            # degenerates, so seat deterministically via the shared spread;
+            # the next liveness change re-solves.
+            return _least_loaded_spread(load, alive, cap, n_real, n)
+        load_t, cap_t, alive_t = self._to_device(load, cap, alive)
+        cost = build_cost_matrix(load_t, cap_t, alive_t)  # (1, n_nodes)
+        if g is not None:
+            # Warm path: bias the score by the cached node potentials from
+            # the last OT solve, then waterfill.
+            g = torch.where(torch.isfinite(g), g, -1e9)
+            cost = cost - g[None, :]
+        bucket = _next_bucket(n)
+        rows = cost.expand(bucket, cost.shape[1])
+        mass = torch.zeros(bucket, dtype=torch.float32, device=self.device)
+        mass[:n] = 1.0
+        seats = greedy_balanced_assign(rows, mass, cap_t * alive_t, load_t)
+        return _route_unseatable(seats[:n].cpu().numpy(), n_real, load, alive, cap)
+
+    def _apply_chunk(self, keys: list[str], assignment: np.ndarray) -> None:
+        for k, idx in zip(keys, assignment.tolist()):
+            self._set_placement(k, int(idx))
+            self._nodes[self._node_order[idx]].load += 1.0
+        self._epoch += 1
+
+    # ---------------------------------------------------- incremental solve
+    def _delta_gates_ok(self, plan: PlanState | None, force: bool) -> bool:
+        """A plan must exist; ``force`` overrides the rest (threshold
+        disabled, plan marked stale, ``max_delta_solves`` consecutive
+        deltas)."""
+        if plan is None:
+            return False
+        if force:
+            return True
+        if self._delta_threshold <= 0.0 or plan.stale:
+            return False
+        return plan.delta_solves < self._max_delta_solves
+
+    def _class_refresh(self, cap, alive, counts_np, cap_alive, mode, plan):
+        """Warm potential refresh at the class shape (M x M), seeded with the
+        plan's potentials. Host arrays in; returns ``(g, score, err)``: the
+        new column potentials (device), the per-node host fill score, and
+        the refresh's scalar residual. A missing seed is passed as zeros:
+        cold start IS the zero seed in both solver forms."""
+        cap_t, alive_t = self._to_device(cap, alive)
+        base = build_cost_matrix(torch.zeros_like(cap_t), cap_t, alive_t)[0]
+        g_seed = torch.zeros_like(base) if plan.g is None else plan.g
+        counts_t, cap_alive_t = self._to_device(
+            np.asarray(counts_np, np.float32), cap_alive.astype(np.float32)
+        )
+        g_r, err = _class_refresh_device(
+            base, counts_t, cap_alive_t, g_seed,
+            mode=mode,
+            move_cost=self._move_cost,
+            eps=min(self._eps, self._move_cost / 25.0 if self._move_cost > 0 else self._eps),
+            n_iters=max(4, min(8, self._n_iters)),
+        )
+        g_np = g_r.cpu().numpy().astype(np.float64)
+        score = base.cpu().numpy().astype(np.float64) - np.where(
+            np.isfinite(g_np), g_np, -1e30
+        )
+        return g_r, score, float(err.cpu())
+
+    def _delta_fast_snapshot(self, plan, n, cap, alive, force):
+        """O(displaced) delta snapshot, taken under the provider lock.
+
+        For nodes LEAVING the schedulable set with every survivor at or
+        under its integer fair quota, the displaced set is exactly the
+        departed nodes' seats, which ``_by_node`` already holds: the event
+        costs O(displaced + M^2) instead of the O(N) key/seat snapshot.
+        Returns None whenever per-seat decisions could matter (a survivor
+        over quota needs rank-based eviction).
+        """
+        if not self._delta_gates_ok(plan, force):
+            return None
+        cap_alive = np.asarray(cap, np.float64) * (np.asarray(alive, np.float64) > 0)
+        m = cap_alive.shape[0]
+        sched = cap_alive > 0.0
+        counts = np.zeros(m, np.int64)
+        for j, seats in self._by_node.items():
+            if j < m:
+                counts[j] = len(seats)
+        quota = integer_fair_quotas(cap_alive, n)
+        if np.any(sched & (counts > quota)):
+            return None  # over-quota eviction: needs per-seat ranks
+        disp_nodes = np.nonzero(~sched & (counts > 0))[0]
+        d = int(counts[disp_nodes].sum())
+        if not force and d > self._delta_threshold * n:
+            return None
+        disp: list[tuple[str, int]] = []
+        for j in disp_nodes.tolist():
+            disp.extend((k, j) for k in self._by_node.get(j, ()))
+        retained = np.where(sched, counts, 0)
+        return {
+            "disp": disp,
+            "counts": counts,
+            "cap_alive": cap_alive,
+            "quota": quota,
+            "retained": retained,
+            "residual": quota - retained,
+            "d": d,
+        }
+
+    def _audit(self, counts_after: np.ndarray, quota: np.ndarray, cap_alive: np.ndarray) -> bool:
+        """Transport-cost audit (quadratic congestion proxy): True (stale)
+        when the achieved seating costs more than ``delta_audit_ratio`` x
+        the integer-quota ideal. Unschedulable nodes get a tiny capacity
+        floor, so any stray seat there trips it."""
+        safe_cap = np.maximum(cap_alive, 1e-9)
+        num = float(np.sum(counts_after.astype(np.float64) ** 2 / safe_cap))
+        den = float(np.sum(quota.astype(np.float64) ** 2 / safe_cap))
+        return bool(den > 0.0 and num > self._delta_audit_ratio * den)
+
+    async def _delta_fast_rebalance(
+        self, fast, *, n, mode, move_sink, cap, alive, node_order, plan, snapshot_epoch,
+    ) -> int:
+        """Solve + commit an O(displaced) fast delta (see
+        :meth:`_delta_fast_snapshot`): device work off the event loop, epoch
+        re-checked under the lock before apply, discarded attempts
+        recorded."""
+        solved_as = f"{mode}+delta"
+        disp = fast["disp"]
+        d = fast["d"]
+        residual = fast["residual"]
+        cap_alive = fast["cap_alive"]
+        quota = fast["quota"]
+        retained = fast["retained"]
+        m = cap_alive.shape[0]
+        sched = cap_alive > 0.0
+
+        def _solve():
+            t0 = time.perf_counter()
+            with span("placement_solve", mode=solved_as, n=n):
+                g_new = None
+                conv: dict = {}
+                if d == 0:
+                    # Nothing displaced (pure load jitter): the plan stands.
+                    fill = np.zeros((0,), np.int32)
+                else:
+                    if mode in ("sinkhorn", "scaling"):
+                        g_new, score, ref_err = self._class_refresh(
+                            cap, alive, fast["counts"], cap_alive, mode, plan,
+                        )
+                        conv = {
+                            "solver_iters": max(4, min(8, self._n_iters)),
+                            "residual": ref_err,
+                            "warm_ratio": _seed_warm_ratio(plan.g),
+                        }
+                    else:
+                        score = np.where(sched, retained / np.maximum(quota, 1), 1e18)
+                    fill = residual_capacity_assign(score, residual)
+                counts_after = (retained + np.bincount(fill, minlength=m)).astype(np.float64)
+                stale = self._audit(counts_after, quota, cap_alive)
+                return fill, g_new, _elapsed_ms(t0), stale, counts_after, conv
+
+        fill, g, solve_ms, stale, counts_after, conv = await asyncio.to_thread(_solve)
+
+        async with self._lock:
+            if self._epoch != snapshot_epoch:
+                self.stats = SolveStats(
+                    n_objects=n,
+                    n_nodes=len(self._node_order),
+                    solve_ms=solve_ms,
+                    displaced=d,
+                    epoch=self._epoch,
+                    mode=solved_as,
+                    discarded=True,
+                    history=self._archived_history(),
+                    **_conv_fields(conv),
+                )
+                return 0
+            hist = self._archived_history()
+            t_apply = time.perf_counter()
+            moved = 0
+            planned: list[tuple[str, str, str]] = []
+            for (key, old_idx), new_idx in zip(disp, fill.tolist()):
+                if move_sink is not None:
+                    planned.append((key, node_order[old_idx], node_order[int(new_idx)]))
+                elif self._set_placement(key, int(new_idx)):
+                    moved += 1
+            if move_sink is not None:
+                moved = len(planned)
+            if g is not None:
+                self._g = g
+                self._g_fp = self._sched_fp()
+            self._recount_loads()
+            self._epoch += 1
+            self._plan = PlanState(
+                g=g if g is not None else plan.g,
+                seat_counts=np.asarray(counts_after, np.int64),
+                epoch=self._epoch,
+                liveness_fp=self._sched_fp(),
+                delta_solves=plan.delta_solves + 1,
+                stale=stale,
+            )
+            self.stats = SolveStats(
+                n_objects=n,
+                n_nodes=len(self._node_order),
+                solve_ms=solve_ms,
+                apply_ms=(time.perf_counter() - t_apply) * 1e3,
+                moved=moved,
+                displaced=d,
+                epoch=self._epoch,
+                mode=solved_as,
+                discarded=False,
+                history=hist,
+                **_conv_fields(conv),
+            )
+        if planned:
+            planned.sort(key=lambda mv: (mv[1], mv[2]))
+            # Outside the lock on purpose: handoffs call back into
+            # update()/lookup(), which take it.
+            await move_sink(planned)
+        return moved
+
+    def _delta_solve(
+        self, cur_idx, cap, alive, plan: PlanState, mode: str, obj_w, force: bool,
+    ):
+        """Delta rebalance: re-solve ONLY the displaced objects against
+        residual capacity, warm-starting from the previous plan.
+
+        The displaced set is every seat on a node that left the schedulable
+        set plus the over-quota overflow on surviving nodes (per-seat rank
+        beyond the node's integer fair quota; with per-object prices the
+        heavy objects rank first and are kept). Undisplaced objects keep
+        their seats by construction, and the fill targets each node's
+        residual quota, so the result lands on exactly the integer per-node
+        counts of ``integer_fair_quotas``. Host numpy around one M x M warm
+        refresh. Returns ``(assignment, g, displaced, stale, conv)``, or
+        None when a gate says this event needs the full solve.
+        """
+        n = int(cur_idx.shape[0])
+        if n == 0 or not self._delta_gates_ok(plan, force):
+            return None
+        cap_alive = np.asarray(cap, np.float64) * (np.asarray(alive, np.float64) > 0)
+        m = cap_alive.shape[0]
+        sched = cap_alive > 0.0
+        quota = integer_fair_quotas(cap_alive, n)  # (m,), sums to n exactly
+        cur = np.asarray(cur_idx, np.int64)
+        # Rank each object within its current seat's population (one stable
+        # sort); heavy/hot objects first when prices are given.
+        if obj_w is not None:
+            order = np.lexsort((-np.asarray(obj_w, np.float64), cur))
+        else:
+            order = np.argsort(cur, kind="stable")
+        sorted_seats = cur[order]
+        starts = np.searchsorted(sorted_seats, np.arange(m))
+        rank = np.empty(n, np.int64)
+        rank[order] = np.arange(n) - starts[sorted_seats]
+        keep = sched[cur] & (rank < quota[cur])
+        disp_pos = np.nonzero(~keep)[0]
+        d = int(disp_pos.shape[0])
+        if d == 0:
+            # Nothing displaced (e.g. a node RETURNED): the plan stands.
+            return cur.astype(np.int32), None, 0, False, {}
+        if not force and d > self._delta_threshold * n:
+            return None
+        # retained[j] = min(counts[j], quota[j]) on schedulable nodes, 0
+        # elsewhere; residual >= 0 and sums to d exactly.
+        retained = np.bincount(cur[keep], minlength=m)
+        residual = quota - retained
+
+        g_new = None
+        conv: dict = {}
+        if mode in ("sinkhorn", "scaling"):
+            g_new, score, ref_err = self._class_refresh(
+                cap, alive, np.bincount(cur, minlength=m), cap_alive, mode, plan,
+            )
+            conv = {
+                "solver_iters": max(4, min(8, self._n_iters)),
+                "residual": ref_err,
+                "warm_ratio": _seed_warm_ratio(plan.g),
+            }
+        else:
+            # Greedy has no potentials: order nodes by how full their
+            # retained population already is.
+            score = np.where(sched, retained / np.maximum(quota, 1), 1e18)
+        fill = residual_capacity_assign(score, residual)
+        out = cur.astype(np.int32).copy()
+        out[disp_pos] = fill
+        stale = self._audit(np.bincount(out, minlength=m), quota, cap_alive)
+        return out, g_new, d, stale, conv
+
+    # ------------------------------------------------ communication graph
+    def set_edge_graph(self, rows) -> int:
+        """Install the cluster-merged communication graph.
+
+        ``rows`` is the ``merge_edges`` shape (``[src, dst, bytes_per_s,
+        calls_per_s, local_frac]``, extra columns optional). Client edges,
+        self-edges and zero-rate rows are dropped; the rest are symmetrized,
+        weighted as bytes/s plus 64 B per call, and normalized so the
+        heaviest edge is 1.0. Returns the edge count. The graph is stored
+        for the affinity refine, which a later slice ports (ROADMAP A.8);
+        with ``affinity_weight`` 0 no solve reads it."""
+        edges: dict[tuple[str, str], float] = {}
+        for r in rows or ():
+            src, dst = str(r[0]), str(r[1])
+            if src == "client" or src == dst:
+                continue
+            bps = max(0.0, float(r[2]))
+            cps = max(0.0, float(r[3])) if len(r) > 3 else 0.0
+            w = bps + 64.0 * cps
+            if w <= 0.0:
+                continue
+            key = (src, dst) if src < dst else (dst, src)
+            edges[key] = edges.get(key, 0.0) + w
+        if edges:
+            top = max(edges.values())
+            edges = {k: v / top for k, v in edges.items()}
+        self._edge_graph = edges
+        return len(edges)
+
+    # ------------------------------------------------------- full rebalance
+    def _object_weights(self, keys: list[str]) -> np.ndarray | None:
+        """Per-object move prices from the ``object_costs`` hook, or None.
+
+        A hook failure or a shape mismatch degrades to uniform pricing
+        (load telemetry must never break a rebalance), and uniform weights
+        are the scalar ``move_cost`` case: None keeps the collapsed path."""
+        if self._object_costs is None:
+            return None
+        try:
+            w = np.asarray(self._object_costs(keys), np.float32)
+        except Exception:  # noqa: BLE001
+            log.exception("object_costs hook failed; pricing moves uniformly")
+            return None
+        if w.shape != (len(keys),):
+            return None
+        w = np.clip(np.nan_to_num(w, nan=1.0, posinf=1.0), 0.0, 1e6)
+        if len(keys) and float(np.ptp(w)) > 0.0:
+            return w
+        return None
+
+    def _full_solve(self, mode, n, bucket, cur_idx, load, cap, alive, plan, obj_w):
+        """One full re-solve on the device: ``(assignment (bucket,), g, conv)``.
+
+        ``sinkhorn``/``scaling`` with no per-object prices run the
+        class-collapsed solve (class_quotas -> expand_class_quotas -> exact
+        repair); with prices, the dense solve over the (bucket x M) cost;
+        ``greedy`` the churn-aware waterfill."""
+        dev = self.device
+        load_t, cap_t, alive_t = self._to_device(load, cap, alive)
+        cap_alive = cap_t * alive_t
+        m_axis = cap_alive.shape[0]
+        cur_t = torch.zeros(bucket, dtype=torch.int32, device=dev)
+        cur_t[:n] = torch.from_numpy(cur_idx).to(dev)
+        real = torch.arange(bucket, device=dev) < n
+        g_seed = plan.g if plan is not None else None
+        warm_ratio = _seed_warm_ratio(g_seed)
+
+        def repair_exact(assignment_padded):
+            """Exact integer quotas at bucket shape; movers evicted first so
+            the repair adds ~zero churn. Padding rows ride a sentinel column."""
+            idx_full = torch.where(real, assignment_padded, m_axis)
+            expected = torch.cat([
+                cap_alive / cap_alive.sum().clamp_min(1e-30) * n,
+                torch.tensor([bucket - n], dtype=torch.float32, device=dev),
+            ])
+            repaired = exact_quota_repair(
+                idx_full, expected,
+                prefer_keep=torch.where(real, idx_full == cur_t, True),
+            )
+            return route_sentinel_spill(repaired, real, m_axis, cap_alive)
+
+        base_cost = build_cost_matrix(torch.zeros_like(load_t), cap_t, alive_t)
+        if mode in ("sinkhorn", "scaling") and obj_w is None:
+            # CLASS-COLLAPSED exact solve: every object with the same current
+            # seat has an identical cost row, so the (N x M) problem
+            # collapses to (M x M) and N drops out of the solve. The class
+            # eps is sharpened until off-diagonal leakage (~M exp(-move_cost
+            # / eps)) is negligible; the log-domain solver is stable at any
+            # eps.
+            counts = torch.bincount(cur_t[:n].long(), minlength=m_axis)[:m_axis]
+            class_eps = min(
+                self._eps, self._move_cost / 25.0 if self._move_cost > 0 else self._eps
+            )
+            quotas, g, cls_err = class_quotas(
+                base_cost[0], counts, cap_alive,
+                move_cost=self._move_cost, eps=class_eps, n_iters=self._n_iters,
+                g_init=g_seed,
+            )
+            # Padding rows expand to garbage and are overridden by the
+            # repair's sentinel.
+            assignment = repair_exact(expand_class_quotas(quotas, cur_t))
+            conv = {
+                "solver_iters": self._n_iters,
+                "residual": float(cls_err.cpu()),
+                "warm_ratio": warm_ratio,
+            }
+            return assignment, g, conv
+        # The (bucket x M) cost, materialised before the indexed stay-put
+        # add (the JAX provider adds onto a broadcast).
+        cost = base_cost.expand(bucket, m_axis).clone()
+        if self._move_cost > 0:
+            # Stay-put discount on each object's current seat (scaled by its
+            # price when there are prices): only capacity pressure moves
+            # anything, and the cold objects move first.
+            stay = (
+                torch.full((n,), self._move_cost, dtype=torch.float32, device=dev)
+                if obj_w is None
+                else self._move_cost * torch.from_numpy(obj_w).to(dev)
+            )
+            rows = torch.arange(n, device=dev)
+            cost.index_put_((rows, cur_t[:n].long()), -stay, accumulate=True)
+        mass = real.float()
+        if mode in ("sinkhorn", "scaling"):
+            dense = scaling_sinkhorn if mode == "scaling" else sinkhorn
+            f, g, err = dense(
+                cost, mass, cap_alive, eps=self._eps, n_iters=self._n_iters, g_init=g_seed,
+            )
+            conv = {
+                "solver_iters": self._n_iters,
+                "residual": float(err.cpu()),
+                "warm_ratio": warm_ratio,
+            }
+            assignment = repair_exact(plan_rounded_assign(cost, f, g, self._eps))
+            return assignment, g, conv
+        # Churn-aware greedy: each object KEEPS its seat iff the seat is
+        # alive and the object is within its node's capacity-fair share
+        # (per-node rank < fair); dead seats and over-fair overflow are
+        # waterfilled into the survivors' remaining headroom. Stable sort
+        # keeps padding rows (mass 0, cur 0) after node 0's real rows.
+        order, _, rank_sorted = rank_within_group(cur_t)
+        rank = torch.empty_like(cur_t)
+        rank[order] = rank_sorted
+        fair = mass.sum() * cap_alive / cap_alive.sum().clamp_min(1e-30)
+        cur_l = cur_t.long()
+        keep = (alive_t[cur_l] > 0) & (mass > 0) & (rank < fair[cur_l])
+        kept_load = torch.zeros_like(cap_t).index_add_(
+            0, cur_l, torch.where(keep, mass, 0.0)
+        )
+        refill = greedy_balanced_assign(
+            cost, torch.where(keep, 0.0, mass), cap_alive, node_load=kept_load
+        )
+        return torch.where(keep, cur_t, refill), None, {}
+
+    async def rebalance(
+        self,
+        *,
+        mode: str | None = None,
+        move_sink=None,
+        delta: bool | None = None,
+    ) -> int:
+        """Re-solve the directory; returns the number of moves.
+
+        By default (``delta=None``) a churn event first attempts the
+        incremental delta path (only displaced objects are re-solved
+        against residual quotas, warm-started), and the full solve runs
+        only when a delta gate trips. ``delta=False`` forces the full
+        solve; ``delta=True`` forces the delta path whenever a plan exists.
+        ``stats.mode`` reports which path ran: ``"<mode>+delta"``,
+        ``"<mode>+collapsed"``, ``"<mode>"`` (dense or greedy) or
+        ``"<mode>+no_capacity"``.
+
+        The epoch is snapshotted before the solve, and the result is
+        discarded if the directory changed underneath it. ``move_sink``
+        (``async (list[(key, from_addr, to_addr)]) -> int``) turns the apply
+        into planned moves: the solve commits but rows stand, and the sink
+        (the migration coordinator) actuates each move, outside the lock.
+        """
+        if mode == "hierarchical":
+            raise NotImplementedError(_LATER_HIERARCHICAL)
+        mode = self._solver_mode() if mode in (None, "auto") else mode
+        if mode not in _SOLVER_MODES:
+            raise ValueError(f"unknown placement mode {mode!r}")
+        async with self._lock:
+            n = len(self._placements)
+            snapshot_epoch = self._epoch
+            self._recount_loads()
+            load, cap, alive = self._node_arrays()
+            node_order = list(self._node_order)  # snapshot for off-lock use
+            no_capacity = self._no_schedulable_capacity_host()
+            plan = self._plan  # immutable snapshot (atomic-swap field)
+            # O(displaced) fast path FIRST: for pure node-departure churn
+            # the O(N) key/seat snapshot below is skipped entirely.
+            fast = None
+            if delta is not False and n and not no_capacity:
+                fast = self._delta_fast_snapshot(plan, n, cap, alive, force=(delta is True))
+            if fast is None and n:
+                keys = list(self._placements.keys())
+                cur_idx = np.fromiter(self._placements.values(), np.int32, count=n)
+        if not n:
+            return 0
+        if fast is not None:
+            return await self._delta_fast_rebalance(
+                fast, n=n, mode=mode, move_sink=move_sink, cap=cap, alive=alive,
+                node_order=node_order, plan=plan, snapshot_epoch=snapshot_epoch,
+            )
+
+        bucket = _next_bucket(n)
+
+        def _solve() -> tuple:
+            """The solve, off the event loop; reads only the snapshots."""
+            t0 = time.perf_counter()
+            if no_capacity:
+                # Zero schedulable capacity: reshuffling seats among dead
+                # nodes is pure churn — stay put until liveness returns.
+                solved_as = f"{mode}+no_capacity"
+                with span("placement_solve", mode=solved_as, n=n):
+                    return cur_idx.copy(), None, _elapsed_ms(t0), solved_as, 0, False, {}
+            obj_w = self._object_weights(keys)
+            if delta is not False and plan is not None:
+                with span("placement_solve", mode=f"{mode}+delta", n=n):
+                    d_res = self._delta_solve(
+                        cur_idx, cap, alive, plan, mode, obj_w, force=(delta is True),
+                    )
+                    if d_res is not None:
+                        out_d, g_d, displaced, stale, conv = d_res
+                        out_d = _route_unseatable(out_d, len(node_order), load, alive, cap)
+                        return (
+                            out_d, g_d, _elapsed_ms(t0), f"{mode}+delta", displaced, stale, conv
+                        )
+            if mode in ("sinkhorn", "scaling") and bucket > _FLAT_REBALANCE_MAX_ROWS:
+                raise NotImplementedError(
+                    f"a flat rebalance of {n} objects pads to {bucket} rows, above "
+                    f"{_FLAT_REBALANCE_MAX_ROWS}: {_LATER_HIERARCHICAL}"
+                )
+            collapse = mode in ("sinkhorn", "scaling") and obj_w is None
+            solved_as = f"{mode}+collapsed" if collapse else mode
+            with span("placement_solve", mode=solved_as, n=n), torch.profiler.record_function(
+                f"rio_tpu_torch.solve.{solved_as}"
+            ):
+                assignment, g, conv = self._full_solve(
+                    mode, n, bucket, cur_idx, load, cap, alive, plan, obj_w
+                )
+                out = _route_unseatable(
+                    assignment[:n].cpu().numpy(), len(node_order), load, alive, cap
+                )
+            return out, g, _elapsed_ms(t0), solved_as, n, False, conv
+
+        (
+            assignment, g, solve_ms, solved_as, displaced, stale, conv
+        ) = await asyncio.to_thread(_solve)
+
+        async with self._lock:
+            if self._epoch != snapshot_epoch:
+                # Record the discarded ATTEMPT as its own stats event.
+                self.stats = SolveStats(
+                    n_objects=n,
+                    n_nodes=len(self._node_order),
+                    solve_ms=solve_ms,
+                    displaced=displaced,
+                    epoch=self._epoch,
+                    mode=solved_as,
+                    discarded=True,
+                    history=self._archived_history(),
+                    **_conv_fields(conv),
+                )
+                return 0
+            # Touch only the movers: with the epoch unchanged the directory
+            # equals the cur_idx snapshot.
+            hist = self._archived_history()
+            t_apply = time.perf_counter()
+            mover_pos = np.nonzero(assignment != cur_idx)[0]
+            moved = 0
+            planned: list[tuple[str, str, str]] = []
+            for p in mover_pos.tolist():
+                if move_sink is not None:
+                    # Plan, don't apply: the row flips when the sink's
+                    # handoff commits.
+                    planned.append(
+                        (keys[p], node_order[int(cur_idx[p])], node_order[int(assignment[p])])
+                    )
+                elif self._set_placement(keys[p], int(assignment[p])):
+                    moved += 1
+            if move_sink is not None:
+                moved = len(planned)
+            if g is not None:
+                self._g = g
+                self._g_fp = self._sched_fp()
+            self._recount_loads()
+            self._epoch += 1
+            if not solved_as.endswith("+no_capacity"):
+                # Commit the plan the NEXT churn event deltas against. A
+                # delta with no fresh potentials carries the previous seed
+                # forward; a full solve resets the staleness counter.
+                delta_used = solved_as.endswith("+delta")
+                self._plan = PlanState(
+                    g=(
+                        g
+                        if g is not None
+                        else (plan.g if delta_used and plan is not None else None)
+                    ),
+                    seat_counts=np.bincount(assignment, minlength=self._node_axis),
+                    epoch=self._epoch,
+                    liveness_fp=self._sched_fp(),
+                    delta_solves=(
+                        plan.delta_solves + 1 if delta_used and plan is not None else 0
+                    ),
+                    stale=stale,
+                )
+            self.stats = SolveStats(
+                n_objects=n,
+                n_nodes=len(self._node_order),
+                solve_ms=solve_ms,
+                apply_ms=(time.perf_counter() - t_apply) * 1e3,
+                moved=moved,
+                displaced=displaced,
+                epoch=self._epoch,
+                mode=solved_as,
+                discarded=False,
+                history=hist,
+                **_conv_fields(conv),
+            )
+        if planned:
+            # Grouped by (source, target) so the migration engine batches
+            # contiguous runs; outside the lock (handoffs call update()).
+            planned.sort(key=lambda m: (m[1], m[2]))
+            await move_sink(planned)
+        return moved

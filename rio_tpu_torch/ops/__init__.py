@@ -19,6 +19,8 @@ Each name is its ``rio_tpu.ops`` counterpart's, except for the kernel path:
                                 kernel, plain twin ``fused_iteration_ref``)
 ``pallas_sinkhorn``             ``pallas_sinkhorn`` (no ``block_rows`` or
                                 ``interpret``: nothing is padded)
+``class_quotas``,               ``rio_tpu.ops.structured`` (the collapsed
+``expand_class_quotas``         O(M^2) rebalance solve; plain PyTorch)
 ==============================  =========================================
 """
 
@@ -40,6 +42,7 @@ from .scaling import (
     scaling_impl_for,
     scaling_sinkhorn,
 )
+from .structured import class_quotas, expand_class_quotas
 from .sinkhorn import (
     SinkhornResult,
     exact_quota_repair,
@@ -62,6 +65,8 @@ __all__ = [
     "scaling_core_auto",
     "scaling_impl_for",
     "scaling_sinkhorn",
+    "class_quotas",
+    "expand_class_quotas",
     "assign_from_potentials",
     "build_cost_matrix",
     "greedy_balanced_assign",

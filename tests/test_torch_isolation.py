@@ -35,6 +35,7 @@ def test_importing_every_module_of_the_port_loads_no_jax():
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert "rio_tpu_torch.ops.scaling" in result["imported"]
     assert "rio_tpu_torch.kernels.build" in result["imported"]
+    assert "rio_tpu_torch.object_placement.torch_placement" in result["imported"]
     assert result["bad"] == [], f"the port loaded {result['bad']}"
 
 

@@ -60,8 +60,34 @@ Phases, each printing one JSON line:
    - ``directory_standbys``: ``assign_standbys(k=1)`` on 65,536 objects of the
      ``directory_full`` provider: no standby on its object's primary, every seat on a
      live node.
+13. the ``hier`` group, BASELINE row 5: 10,485,760 objects on 1,024 nodes (a
+   power-of-two bucket of 16,777,216 rows: 32 chunks of 524,288, 128 groups of 8,
+   fine bucket 8,192, eps 0.05, 30 + 30 iterations), each phase with its wall ms,
+   peak device memory and both kernels' launch counts (0), the provider phases with
+   ``stats.mode``, ``solve_ms``, ``apply_ms``, ``chunks``, ``chunk_ms``, moved and
+   displaced:
 
-Then the ``kernels`` line and, last, ``{"ok": true, "device": {...}}``. Any failed
+   - ``hier_features``: ``_hash_features`` for 10,485,760 keys on the card, the host
+     crc32s timed apart; on 65,536 of them the card's threefry words equal the CPU's
+     and its features lie within 1e-6 of the CPU's;
+   - ``hier_assign``: ``chunked_hierarchical_assign_timed`` on seeded features with 31
+     nodes dead: no overflow, no row on a dead node, live loads within 10% of fair; the
+     untimed form gives the same result; chunk 0 again on the CPU gives the same node
+     counts and >= 99% of rows on the same node;
+   - ``hier_directory``: ``TorchObjectPlacement(affinity_tracker=AffinityTracker())``
+     (``auto`` resolves to ``hierarchical``) at 1,048,576 objects: ``assign_batch``, a
+     full rebalance in 2 chunks, 3:1 home:secondary traffic on the objects of 30 nodes
+     (the tracker draws on the card: on 64 warmed and 64 cold keys and every node its
+     features equal a CPU tracker's, and one cold key's draw is timed as a graph replay
+     and as eager launches), those nodes killed, a ``hierarchical+delta`` rebalance that moves exactly the
+     displaced objects and nothing else; its locality hit rate (displaced objects on
+     their secondary) at least 10x chance;
+   - ``hier_at_scale``: ``mode="sinkhorn"`` at 10,485,760 objects: ``assign_batch``,
+     then ``rebalance(delta=False)`` before and after 31 nodes die, each routed
+     (``sinkhorn+hier_at_scale``, 32 chunks, 1 device) with dead nodes empty and live
+     loads within 10% of fair; undisplaced moves printed.
+
+Then ``hier_times``, the ``kernels`` line and, last, ``{"ok": true, "device": {...}}``. Any failed
 check raises, so the script exits non-zero and prints no result. Without a CUDA
 device it exits 1 at once.
 
@@ -97,6 +123,15 @@ TOL_LOGDOMAIN_STEP = 1e-3
 # The directory group: bench.py's _incremental_rate shape (3% of nodes dead).
 DIR_OBJ, DIR_NODES, DIR_KILL, DIR_MOVE_COST = 1 << 20, 1024, 30, 0.5
 STANDBY_OBJ = 65536
+# The hierarchical group: BASELINE row 5 (10,485,760 objects on 1,024 nodes,
+# 31 of them dead, 3%) and the tracker-driven directory at 1,048,576.
+HIER_OBJ, HIER_DEAD = 10_485_760, 31
+HIER_DIR_OBJ, HIER_DIR_KILL = 1 << 20, 30
+HIER_SAMPLE = 65536
+HIER_TRACKER_PROBE = 64  # warmed (and as many cold) keys replayed on a CPU tracker
+TOL_HIER_FEATURES = 1e-6  # the card's hashed features against the CPU path's
+HIER_LOAD_SLACK = 0.10  # live loads within 10% of fair (tests/test_hierarchical.py:226)
+HIER_ROW_AGREEMENT = 0.99  # one chunk on the card against the same chunk on the CPU
 
 
 def emit(phase: str, **fields) -> None:
@@ -154,12 +189,58 @@ def cuda_median_ms(fn, reps: int, warmup: int = 2, batch: int = 1) -> float:
     return statistics.median(times)
 
 
+def host_median_us(fn, reps: int, warmup: int = 5) -> float:
+    """Median wall microseconds of one call of a host-bound ``fn`` that ends synchronised."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e6)
+    return statistics.median(times)
+
+
 class _Member:
     """What ``sync_members`` reads of a membership row."""
 
     def __init__(self, address: str, active: bool) -> None:
         self.address = address
         self.active = active
+
+
+def _reset_launches() -> None:
+    from rio_tpu_torch.ops import scaling as S
+    from rio_tpu_torch.ops.pallas_sinkhorn import fused_iteration
+
+    S.fused_scaling_iteration.launches = 0
+    fused_iteration.launches = 0
+
+
+def _read_launches(what: str) -> dict:
+    """Both kernels' launch counts since :func:`_reset_launches`; the
+    directory and hierarchical paths reach neither kernel, so each must be 0."""
+    from rio_tpu_torch.ops import scaling as S
+    from rio_tpu_torch.ops.pallas_sinkhorn import fused_iteration
+
+    launches = {"fused_scaling_iteration": S.fused_scaling_iteration.launches,
+                "fused_iteration": fused_iteration.launches}
+    check(sum(launches.values()) == 0, f"{what} launched a kernel: {launches}")
+    return launches
+
+
+async def timed_call(coro_fn, what: str = "the directory"):
+    """Run one provider call with both kernel counts at 0; its result, wall ms
+    after a device synchronize, and the counts read just after."""
+    import torch
+
+    _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = await coro_fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return result, ms, _read_launches(what)
 
 
 async def directory_phases(dev, card: dict) -> dict:
@@ -169,8 +250,6 @@ async def directory_phases(dev, card: dict) -> dict:
 
     from rio_tpu_torch.object_placement.torch_placement import TorchObjectPlacement
     from rio_tpu_torch.ops import integer_fair_quotas
-    from rio_tpu_torch.ops import scaling as S
-    from rio_tpu_torch.ops.pallas_sinkhorn import fused_iteration
     from rio_tpu_torch.registry import ObjectId
 
     addrs = [f"10.{i // 256}.{i % 256}.1:5000" for i in range(DIR_NODES)]
@@ -218,20 +297,7 @@ async def directory_phases(dev, card: dict) -> dict:
         safe = np.maximum(cap_alive, 1e-9)
         return float(np.sum(counts**2 / safe) / max(np.sum(quota**2 / safe), 1e-9))
 
-    async def timed(coro_fn):
-        """Run one provider call with both kernel counts at 0; wall ms after a
-        device synchronize, and the counts read just after."""
-        S.fused_scaling_iteration.launches = 0
-        fused_iteration.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        result = await coro_fn()
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3
-        launches = {"fused_scaling_iteration": S.fused_scaling_iteration.launches,
-                    "fused_iteration": fused_iteration.launches}
-        check(sum(launches.values()) == 0, f"the directory launched a kernel: {launches}")
-        return result, ms, launches
+    timed = timed_call
 
     def stats_fields(p) -> dict:
         s = p.stats
@@ -354,6 +420,256 @@ async def directory_phases(dev, card: dict) -> dict:
     out["standbys_ms"] = ms
     emit("directory_standbys", **card, n=STANDBY_OBJ, m=DIR_NODES, k=1, wall_ms=ms,
          standbys_per_live_node=[int(per_node.min()), int(per_node.max())], launches=launches)
+    return out
+
+
+async def hier_phases(dev, card: dict) -> dict:
+    """The ``hier`` group (phase 13): returns the times it printed."""
+    import numpy as np
+    import torch
+
+    from rio_tpu_torch.object_placement import AffinityTracker, TorchObjectPlacement
+    from rio_tpu_torch.object_placement import torch_placement as tp
+    from rio_tpu_torch.ops import prng
+    from rio_tpu_torch.parallel.hierarchical import (
+        chunked_hierarchical_assign,
+        chunked_hierarchical_assign_timed,
+        hierarchical_assign,
+    )
+    from rio_tpu_torch.registry import ObjectId
+
+    addrs = [f"10.{i // 256}.{i % 256}.2:5000" for i in range(DIR_NODES)]
+    rng = np.random.default_rng(2)
+    dead = sorted(int(i) for i in rng.choice(DIR_NODES, HIER_DEAD, replace=False))
+    out: dict = {}
+
+    def members(gone) -> list:
+        return [_Member(a, i not in gone) for i, a in enumerate(addrs)]
+
+    def seat_array(p) -> np.ndarray:
+        return np.fromiter(p._placements.values(), np.int64, count=p.count())
+
+    def live_spread(loads, gone, n, what: str) -> list:
+        """Dead nodes empty; live loads within HIER_LOAD_SLACK of fair; [min, max]."""
+        live = np.asarray([i not in gone for i in range(DIR_NODES)])
+        fair = n / live.sum()
+        check(int(loads[~live].sum()) == 0, f"{what}: objects on dead nodes")
+        lo, hi = int(loads[live].min()), int(loads[live].max())
+        check((1 - HIER_LOAD_SLACK) * fair <= lo and hi <= (1 + HIER_LOAD_SLACK) * fair,
+              f"{what}: live loads {lo}..{hi} against fair {fair:.1f}")
+        return [lo, hi]
+
+    async def provider_call(coro_fn, what: str):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        result, ms, launches = await timed_call(coro_fn, what)
+        return result, ms, launches, torch.cuda.max_memory_allocated()
+
+    def stats_fields(p) -> dict:
+        s = p.stats
+        return {"mode": s.mode, "solve_ms": s.solve_ms, "apply_ms": s.apply_ms,
+                "chunks": s.chunks, "devices": s.devices, "chunk_ms": s.chunk_ms,
+                "moved": s.moved, "displaced": s.displaced, "residual": s.residual}
+
+    # -- hier_features: _hash_features for HIER_OBJ keys ------------------------
+    keys = [f"Hier.{i}" for i in range(HIER_OBJ)]
+    t0 = time.perf_counter()
+    seeds = tp._key_seeds(keys)
+    crc_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = time.perf_counter()
+    feats = tp._hash_features(keys, device=dev)
+    torch.cuda.synchronize()
+    total_ms = (time.perf_counter() - t0) * 1e3
+    launches = _read_launches("_hash_features")
+    peak = torch.cuda.max_memory_allocated()
+    # The draws alone, from seeds already on the card (_hash_features' loop).
+    seeds_t = torch.from_numpy(seeds).to(dev)
+    draws = torch.empty_like(feats)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for start in range(0, HIER_OBJ, tp._HASH_CHUNK_KEYS):
+        draws[start:start + tp._HASH_CHUNK_KEYS] = prng.normal(
+            seeds_t[start:start + tp._HASH_CHUNK_KEYS], tp._FEAT_DIM
+        )
+    torch.cuda.synchronize()
+    draw_ms = (time.perf_counter() - t0) * 1e3
+    check(torch.equal(draws, feats), "the draws differ from _hash_features")
+    sample = np.arange(0, HIER_OBJ, HIER_OBJ // HIER_SAMPLE)[:HIER_SAMPLE]
+    sample_keys = [keys[i] for i in sample]
+    sample_seeds = torch.from_numpy(tp._key_seeds(sample_keys))
+    words_equal = torch.equal(
+        prng.random_bits(sample_seeds.to(dev), tp._FEAT_DIM).cpu(),
+        prng.random_bits(sample_seeds, tp._FEAT_DIM),
+    )
+    check(words_equal, "threefry words on the card differ from the CPU's")
+    feat_err = float((feats[torch.from_numpy(sample).to(dev)].cpu()
+                      - tp._hash_features(sample_keys)).abs().max())
+    check(feat_err <= TOL_HIER_FEATURES, f"features on the card vs the CPU: max |d| {feat_err}")
+    out.update(features_ms=total_ms, features_crc_ms=crc_ms, features_draw_ms=draw_ms)
+    emit("hier_features", **card, n=HIER_OBJ, dim=tp._FEAT_DIM, wall_ms=total_ms, crc_ms=crc_ms,
+         draw_ms=draw_ms, sample=HIER_SAMPLE, words_equal=words_equal, max_abs_err=feat_err,
+         tol=TOL_HIER_FEATURES, peak_bytes=peak, launches=launches)
+    del keys, seeds, feats, draws, seeds_t
+
+    # -- hier_assign: chunked_hierarchical_assign_timed at the provider's shape --
+    n_pad = tp._next_bucket(HIER_OBJ)
+    n_chunks = max(1, n_pad // tp._HIER_CHUNK_ROWS)
+    rows = n_pad // n_chunks
+    n_groups, group_size = DIR_NODES // 8, 8
+    alive = torch.ones(DIR_NODES)
+    alive[dead] = 0.0
+    live_cap = alive.view(n_groups, group_size).sum(dim=1)
+    share = float(live_cap.max() / live_cap.sum())
+    bucket = min(tp._next_bucket(max(8, int(1.3 * rows * share)), minimum=8), rows)
+    kw = dict(n_groups=n_groups, bucket=bucket, eps=EPS, coarse_iters=N_ITERS, fine_iters=N_ITERS)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    obj = torch.randn((n_pad, tp._FEAT_DIM), generator=gen, device=dev)
+    node = torch.randn((tp._FEAT_DIM, DIR_NODES), generator=gen, device=dev) * 0.2
+    cap, alive = torch.ones(DIR_NODES, device=dev), alive.to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = time.perf_counter()
+    res, chunk_ms = chunked_hierarchical_assign_timed(obj, node, cap, alive, n_chunks=n_chunks, **kw)
+    assignment = res.assignment.cpu().numpy()
+    assign_ms = (time.perf_counter() - t0) * 1e3
+    launches = _read_launches("the hierarchical solve")
+    peak = torch.cuda.max_memory_allocated()
+    check(int(res.overflow) == 0, f"overflow {int(res.overflow)}")
+    spread = live_spread(np.bincount(assignment, minlength=DIR_NODES), set(dead), n_pad,
+                         "hierarchical assign")
+    untimed = chunked_hierarchical_assign(obj, node, cap, alive, n_chunks=n_chunks, **kw)
+    check(torch.equal(untimed.assignment, res.assignment) and torch.equal(untimed.group, res.group)
+          and int(untimed.overflow) == int(res.overflow), "untimed form differs from the timed form")
+    # Chunk 0 again on the CPU, against its own share of the capacity.
+    t0 = time.perf_counter()
+    cpu = hierarchical_assign(obj[:rows].cpu(), node.cpu(), cap.cpu() / n_chunks, alive.cpu(), **kw)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    card0, cpu0 = assignment[:rows], cpu.assignment.numpy()
+    agree = float(np.mean(card0 == cpu0))
+    check(np.array_equal(np.bincount(card0, minlength=DIR_NODES), np.bincount(cpu0, minlength=DIR_NODES)),
+          "chunk 0's node counts differ between the card and the CPU")
+    check(agree >= HIER_ROW_AGREEMENT, f"chunk 0 rows agree {agree} with the CPU")
+    out.update(assign_ms=assign_ms, chunk_ms_median=statistics.median(chunk_ms),
+               chunk_ms_first=chunk_ms[0], chunk_ms_max=max(chunk_ms))
+    emit("hier_assign", **card, n=HIER_OBJ, rows=n_pad, m=DIR_NODES, dead=HIER_DEAD,
+         groups=n_groups, chunks=n_chunks, bucket=bucket, n_iters=N_ITERS, wall_ms=assign_ms,
+         chunk_ms=chunk_ms, overflow=int(res.overflow), live_loads=spread,
+         coarse_residual=float(res.coarse_err), cpu_chunk_ms=cpu_ms, cpu_row_agreement=agree,
+         peak_bytes=peak, launches=launches)
+    del obj, node, res, untimed, cpu, assignment
+
+    # -- hier_directory: AffinityTracker + auto -> hierarchical ------------------
+    tracker = AffinityTracker()
+    p = TorchObjectPlacement(eps=EPS, n_iters=N_ITERS, node_axis_size=DIR_NODES,
+                             affinity_tracker=tracker, device=dev)
+    p.sync_members(members(()))
+    check(p._solver_mode() == "hierarchical", f"auto with a tracker is {p._solver_mode()}")
+    ids = [ObjectId("HDir", str(i)) for i in range(HIER_DIR_OBJ)]
+    _, assign_ms, launches, peak = await provider_call(lambda: p.assign_batch(ids), "assign_batch")
+    moved, full_ms, full_launches, full_peak = await provider_call(
+        lambda: p.rebalance(delta=False), "the hierarchical rebalance")
+    check(p.stats.mode == "hierarchical" and p.stats.devices == 1, f"full solve {p.stats.mode}")
+    check(p.stats.chunks == max(1, tp._next_bucket(HIER_DIR_OBJ) // tp._HIER_CHUNK_ROWS),
+          f"full solve in {p.stats.chunks} chunks")
+    full = stats_fields(p)
+    full_spread = live_spread(np.bincount(seat_array(p), minlength=DIR_NODES), set(), HIER_DIR_OBJ,
+                              "hierarchical full rebalance")
+    # Warm the tracker on the objects of HIER_DIR_KILL nodes spread across
+    # groups: 3:1 home:secondary traffic, secondaries uniform over the
+    # survivors (tests/test_affinity_payoff.py).
+    homes = [5 + i * (DIR_NODES // HIER_DIR_KILL) for i in range(HIER_DIR_KILL)]
+    survivors = [addrs[i] for i in range(DIR_NODES) if i not in set(homes)]
+    work = [(k, addrs[j]) for k, j in p._placements.items() if j in set(homes)]
+    secondary = {k: survivors[(i * 7 + 3) % len(survivors)] for i, (k, _) in enumerate(work)}
+    t0 = time.perf_counter()
+    for k, home in work:
+        for _ in range(4):
+            for _ in range(3):
+                tracker.observe(k, home)
+            tracker.observe(k, secondary[k])
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    # The tracker draws on the provider's card: its learned and cold
+    # features and its node embeddings equal a CPU tracker's on the same
+    # calls, bit for bit.
+    check(tracker.device == p.device, f"the tracker draws on {tracker.device}")
+    cpu_tracker = AffinityTracker(device="cpu")
+    probe = [k for k, _ in work[:HIER_TRACKER_PROBE]]
+    for k in probe:
+        home = addrs[p._placements[k]]
+        for _ in range(4):
+            for _ in range(3):
+                cpu_tracker.observe(k, home)
+            cpu_tracker.observe(k, secondary[k])
+    probe += [f"HCold.{i}" for i in range(HIER_TRACKER_PROBE)]
+    check(np.array_equal(tracker.obj_features(probe), cpu_tracker.obj_features(probe))
+          and np.array_equal(tracker.node_features(addrs), cpu_tracker.node_features(addrs)),
+          "the tracker's features on the card differ from the CPU's")
+    # One cold key's draw, host-bound: the tracker's captured graph against
+    # eager launches (median wall us of a call, which ends in a copy back).
+    one_key_us = host_median_us(lambda: tracker._draw(["HCold.0"]), reps=200)
+    eager_key_us = host_median_us(lambda: tp._hash_features(["HCold.0"], device=dev).cpu(), reps=50)
+    before = seat_array(p)
+    p.sync_members(members(set(homes)))
+    moved, delta_ms, delta_launches, delta_peak = await provider_call(
+        lambda: p.rebalance(), "the hierarchical delta")
+    check(p.stats.mode == "hierarchical+delta", f"churn solve {p.stats.mode}")
+    after = seat_array(p)
+    on_dead = np.isin(before, homes)
+    undisplaced = int(((before != after) & ~on_dead).sum())
+    check(moved == p.stats.displaced == int(on_dead.sum()) == len(work),
+          f"delta moved {moved}, displaced {p.stats.displaced}, dead nodes held {int(on_dead.sum())}")
+    check(undisplaced == 0, f"{undisplaced} undisplaced objects moved")
+    check(int(np.isin(after, homes).sum()) == 0, "objects left on dead nodes")
+    index = {a: i for i, a in enumerate(addrs)}
+    hits = sum(p._placements[k] == index[secondary[k]] for k, _ in work)
+    hit_rate = hits / len(work)
+    chance = 1.0 / len(survivors)
+    check(hit_rate >= 10 * chance, f"locality hit rate {hit_rate} against chance {chance}")
+    out.update(dir_assign_ms=assign_ms, dir_full_ms=full_ms, dir_full_solve_ms=full["solve_ms"],
+               dir_warm_ms=warm_ms, dir_delta_ms=delta_ms, dir_delta_solve_ms=p.stats.solve_ms)
+    emit("hier_directory", **card, n=HIER_DIR_OBJ, m=DIR_NODES, killed=HIER_DIR_KILL,
+         assign={"wall_ms": assign_ms, "peak_bytes": peak, "launches": launches},
+         full={"wall_ms": full_ms, **full, "live_loads": full_spread, "peak_bytes": full_peak,
+               "launches": full_launches},
+         warm_ms=warm_ms, warmed_objects=len(work), tracker_device=str(tracker.device),
+         one_key_draw_us=one_key_us, eager_one_key_draw_us=eager_key_us,
+         wall_ms=delta_ms, **stats_fields(p),
+         undisplaced_moves=undisplaced, locality_hit_rate=hit_rate, chance=chance,
+         peak_bytes=delta_peak, launches=delta_launches)
+    del p, tracker, ids, work, secondary
+
+    # -- hier_at_scale: a flat mode above _FLAT_REBALANCE_MAX_ROWS ---------------
+    p = TorchObjectPlacement(mode="sinkhorn", eps=EPS, n_iters=N_ITERS, node_axis_size=DIR_NODES,
+                             device=dev)
+    p.sync_members(members(()))
+    ids = [ObjectId("Hier", str(i)) for i in range(HIER_OBJ)]
+    _, assign_ms, launches, peak = await provider_call(lambda: p.assign_batch(ids), "assign_batch")
+    del ids
+    steps = {}
+    for step, gone in (("settle", set()), ("kill", set(dead))):
+        before = seat_array(p)
+        p.sync_members(members(gone))
+        moved, ms, step_launches, step_peak = await provider_call(
+            lambda: p.rebalance(delta=False), "the routed rebalance")
+        check(p.stats.mode == "sinkhorn+hier_at_scale", f"{step}: routed rebalance ran {p.stats.mode}")
+        check(p.stats.chunks == n_chunks and p.stats.devices == 1,
+              f"{step}: {p.stats.chunks} chunks on {p.stats.devices} devices")
+        after = seat_array(p)
+        spread = live_spread(np.bincount(after, minlength=DIR_NODES), gone, HIER_OBJ,
+                             f"routed rebalance ({step})")
+        undisplaced = int(((before != after) & ~np.isin(before, list(gone))).sum())
+        steps[step] = {"wall_ms": ms, **stats_fields(p), "live_loads": spread,
+                       "undisplaced_moves": undisplaced, "peak_bytes": step_peak,
+                       "launches": step_launches}
+    out.update(scale_assign_ms=assign_ms, scale_settle_ms=steps["settle"]["wall_ms"],
+               scale_settle_solve_ms=steps["settle"]["solve_ms"],
+               scale_kill_ms=steps["kill"]["wall_ms"], scale_kill_solve_ms=steps["kill"]["solve_ms"])
+    emit("hier_at_scale", **card, n=HIER_OBJ, m=DIR_NODES, killed=HIER_DEAD,
+         assign={"wall_ms": assign_ms, "peak_bytes": peak, "launches": launches}, **steps)
     return out
 
 
@@ -726,6 +1042,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     directory = asyncio.run(directory_phases(dev, card))
     emit("directory_times", **card, **directory)
+
+    # -- 13. the hierarchical solve ---------------------------------------------
+    torch.cuda.empty_cache()
+    hier = asyncio.run(hier_phases(dev, card))
+    emit("hier_times", **card, **hier)
 
     print(json.dumps({"kernels": [{
         "name": "fused_scaling_iteration",

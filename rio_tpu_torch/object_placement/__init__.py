@@ -4,7 +4,9 @@ Copies of the trait surface of ``rio_tpu/object_placement/__init__.py``:
 :class:`ObjectPlacementItem`, :func:`sanitize_standby_row` and the
 :class:`ObjectPlacement` ABC, a CRUD mapping ``ObjectId -> server_address``
 consulted on every request. The port's provider is
-:class:`~rio_tpu_torch.object_placement.torch_placement.TorchObjectPlacement`.
+:class:`~rio_tpu_torch.object_placement.torch_placement.TorchObjectPlacement`,
+and :class:`~rio_tpu_torch.object_placement.torch_placement.AffinityTracker`
+feeds its hierarchical mode; both are exported here.
 Its ``update`` reads ``item.object_id`` and ``item.server_address`` by
 attribute, so ``rio_tpu``'s items serve as well as these.
 """
@@ -17,9 +19,11 @@ import dataclasses
 from ..registry import ObjectId
 
 __all__ = [
+    "AffinityTracker",
     "ObjectId",
     "ObjectPlacementItem",
     "ObjectPlacement",
+    "TorchObjectPlacement",
     "sanitize_standby_row",
 ]
 
@@ -129,3 +133,7 @@ class ObjectPlacement(abc.ABC):
         and return the new epoch. Returns ``None`` when the CAS loses —
         someone else promoted first, or the standby set changed."""
         raise NotImplementedError(f"{type(self).__name__} stores no standbys")
+
+
+# Last: the provider module imports the trait above from this package.
+from .torch_placement import AffinityTracker, TorchObjectPlacement  # noqa: E402

@@ -10,10 +10,16 @@ and ``PlacementDaemon`` run on it. It keeps:
 - a **host-mirrored directory** (dict) answering ``lookup`` in O(1) with no
   I/O;
 - a **device solve**: batched placement of new objects through a greedy
-  waterfill biased by cached node potentials, and full re-solves in three
+  waterfill biased by cached node potentials, and full re-solves in four
   forms — the class-collapsed O(M^2) Sinkhorn
   (:mod:`rio_tpu_torch.ops.structured`), the dense Sinkhorn or scaling
-  solve over per-object prices, and the churn-aware greedy waterfill;
+  solve over per-object prices, the churn-aware greedy waterfill, and the
+  two-level hierarchical solve over object and node features
+  (:mod:`rio_tpu_torch.parallel.hierarchical`), which ``mode="hierarchical"``
+  runs and which flat rebalances above ``_FLAT_REBALANCE_MAX_ROWS`` padded
+  rows are routed to (``"<mode>+hier_at_scale"``);
+- an :class:`AffinityTracker` that turns served requests into the
+  hierarchical solve's object features;
 - **incremental (delta) rebalances** that re-solve only the displaced
   objects against residual quotas, warm-started from the last plan;
 - **epoch versioning**: every mutation bumps an epoch, and a solve whose
@@ -25,17 +31,17 @@ synchronisation point, so ``solve_ms`` includes the device's time.
 
 It runs on the CUDA device unless it is built with ``device="cpu"``.
 What a later slice ports raises ``NotImplementedError`` naming its
-ROADMAP item: ``mode="hierarchical"``, feature hooks or an
-``AffinityTracker``, a ``mesh``, ``affinity_weight > 0``, and a flat
-rebalance above ``_FLAT_REBALANCE_MAX_ROWS`` padded rows (which the JAX
-provider routes to its hierarchical solve).
+ROADMAP item: a ``mesh`` and ``affinity_weight > 0``.
 """
 
 from __future__ import annotations
 
 import asyncio
+import functools
 import logging
+import threading
 import time
+import zlib
 from dataclasses import dataclass, field, replace
 
 import numpy as np
@@ -55,31 +61,41 @@ from ..ops import (
     scaling_sinkhorn,
     sinkhorn,
 )
+from ..ops import prng
 from ..ops.assignment import rank_within_group
 from ..ops.sinkhorn import route_sentinel_spill
+from ..parallel.hierarchical import chunked_hierarchical_assign_timed, hierarchical_assign
 from ..registry import ObjectId
 from ..tracing import span
 from . import ObjectPlacement, ObjectPlacementItem, sanitize_standby_row
 
 log = logging.getLogger(__name__)
 
-# Flat rebalances above this many padded rows route, in the JAX provider,
-# to the two-level hierarchical solve. The port has no hierarchical solve
-# yet, so it refuses them (NotImplementedError) instead of running another
-# path. 1,048,576 (the BASELINE.json goal) stays on the flat paths.
+_FEAT_DIM = 16  # hashed-identity feature width for the hierarchical mode
+
+# Flat (sinkhorn/scaling) rebalances above this many padded rows route
+# through the hierarchical solve ("<mode>+hier_at_scale"). The bound is the
+# JAX provider's, so both providers route the same rebalances; 1,048,576
+# (the BASELINE.json goal) stays on the flat paths.
 _FLAT_REBALANCE_MAX_ROWS = 1_048_576
 
-_SOLVER_MODES = ("sinkhorn", "scaling", "greedy")
+# Hierarchical solves chunk the object axis above this row count (a power
+# of two, so it divides every larger bucket); each chunk solves against
+# its share of every node's capacity.
+_HIER_CHUNK_ROWS = 524_288
+
+# Key-chunk size of the streamed object-feature block: the feature hook is
+# called on slices of this many keys, and rows land in the preallocated
+# final block.
+_OBJ_FEAT_STREAM_ROWS = 262_144
+
+# Keys per batch of threefry draws: bounds the int64 temporaries of
+# _hash_features to ~128 MiB each.
+_HASH_CHUNK_KEYS = 1 << 20
+
+_SOLVER_MODES = ("sinkhorn", "scaling", "greedy", "hierarchical")
 
 # What a later slice ports; each message names its ROADMAP item.
-_LATER_HIERARCHICAL = (
-    "the hierarchical solve is not ported yet "
-    "(ROADMAP A.9: parallel/hierarchical.py, then _hierarchical_solve)"
-)
-_LATER_AFFINITY = (
-    "AffinityTracker and feature hooks are not ported yet "
-    "(ROADMAP A.7: AffinityTracker with a numpy threefry for _hash_features)"
-)
 _LATER_REFINE = "the affinity refine is not ported yet (ROADMAP A.8)"
 _LATER_MESH = "mesh-sharded solves are not ported yet (ROADMAP A.11: parallel/ on torch.distributed)"
 
@@ -90,6 +106,312 @@ def _next_bucket(n: int, minimum: int = 256) -> int:
     while b < n:
         b *= 2
     return b
+
+
+def _key_seeds(keys: list[str]) -> np.ndarray:
+    """Each key's PRNG seed, ``crc32(utf-8 key) & 0x7FFFFFFF`` (host int64)."""
+    return np.fromiter(
+        (zlib.crc32(k.encode()) & 0x7FFFFFFF for k in keys), np.int64, count=len(keys)
+    )
+
+
+def _hash_features(
+    keys: list[str], dim: int = _FEAT_DIM, *, device: str | torch.device = "cpu"
+) -> torch.Tensor:
+    """Stable pseudo-random feature per key: (n, dim) float32 on ``device``.
+
+    The JAX provider's ``_hash_features``: crc32 of the key seeds a PRNG
+    key and the feature is ``jax.random.normal(key, (dim,))``. The draws run
+    on ``device`` (:mod:`rio_tpu_torch.ops.prng`: the same threefry bits,
+    normals within ~5e-7 of XLA's); the crc32s are host work. Deterministic
+    across processes, so affinity survives restarts without storage.
+    """
+    seeds = torch.from_numpy(_key_seeds(keys)).to(device)
+    out = torch.empty((len(keys), dim), dtype=torch.float32, device=device)
+    for start in range(0, len(keys), _HASH_CHUNK_KEYS):
+        stop = start + _HASH_CHUNK_KEYS
+        out[start:stop] = prng.normal(seeds[start:stop], dim)
+    return out
+
+
+# (dim, device) -> features of pad rows 0..len-1 (see _pad_feature_block).
+_PAD_BLOCKS: dict[tuple[int, torch.device], torch.Tensor] = {}
+
+
+def _pad_feature_block(pad: int, dim: int, device: torch.device) -> torch.Tensor:
+    """Deterministic features of the hierarchical solve's first ``pad`` pad rows, on ``device``.
+
+    Pad row i's feature depends on i alone, so one block per (dim, device)
+    holds the most rows asked for so far, grows by the missing rows, and
+    a request is a slice of it: rebuilding up to ``bucket - n`` synthetic
+    keys per rebalance would be pure waste, and one block per pad count
+    would pin a few of them in device memory. Callers only read it."""
+    key = (dim, torch.device(device))
+    block = _PAD_BLOCKS.get(key)
+    have = 0 if block is None else block.shape[0]
+    if have < pad:
+        more = _hash_features([f"\x00pad:{i}" for i in range(have, pad)], dim, device=device)
+        block = more if block is None else torch.cat([block, more])
+        _PAD_BLOCKS[key] = block
+    return block[:pad]
+
+
+# Serialises CUDA graph captures (AffinityTracker._bind).
+_CAPTURE_LOCK = threading.Lock()
+
+
+class _OneKeyDraw:
+    """``prng.normal`` of one seed on a CUDA device, replayed from a CUDA graph.
+
+    ``AffinityTracker.observe`` draws one cold key at a time: ~200
+    dependent elementwise steps on 16 words. As eager launches on the card
+    that took 2.6–2.9 ms a key; replayed from one graph, 0.32–0.33 ms (an
+    H100 80GB HBM3 at 700 W; ``chip_smoke.py`` ``hier_directory`` prints
+    both).
+    Thread-safe: the graph's input and output buffers are shared, so
+    replays are serialised.
+    """
+
+    def __init__(self, dim: int, device: torch.device) -> None:
+        self._lock = threading.Lock()
+        self._seed = torch.zeros((1,), dtype=torch.int64, device=device)
+        # One eager run on a side stream before the capture, as CUDA graphs
+        # require of the operators they record.
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            prng.normal(self._seed, dim)
+        torch.cuda.current_stream(device).wait_stream(side)
+        self._graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self._graph, capture_error_mode="thread_local"):
+            self._out = prng.normal(self._seed, dim)
+
+    def __call__(self, key: str) -> np.ndarray:
+        """(dim,) float32 host feature of ``key`` (``_hash_features([key])[0]``)."""
+        with self._lock:
+            self._seed.fill_(int(_key_seeds([key])[0]))
+            self._graph.replay()
+            return self._out[0].cpu().numpy()
+
+
+def _feature_tensor(x, device: torch.device) -> torch.Tensor:
+    """A feature hook's result (numpy or a tensor) as float32 on ``device``."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.float32)
+    return torch.from_numpy(np.asarray(x, np.float32)).to(device)
+
+
+class AffinityTracker:
+    """Turns observed traffic into placement features for hierarchical mode.
+
+    The counterpart of the JAX provider's tracker, with the same surface
+    and host-numpy state. The two-level solver scores ``obj_feat[i] @
+    node_feat[:, j]``; here each node gets a stable embedding, and each
+    object's feature is a request-weighted EMA of the embeddings of the
+    nodes that served it (cache warmth / state locality), so the OT
+    objective pulls an object toward where its state is hot while the
+    capacity marginals still enforce balance.
+
+    A provider built with ``affinity_tracker=tracker`` carries it, so an
+    unchanged ``rio_tpu`` ``Server`` wires ``observe`` into its dispatch
+    path, the load monitor drives ``fold_rates``, read scaling reads
+    ``object_rates`` and migration reports ``note_state_bytes``.
+
+    The hashed-identity draws (node embeddings, cold objects' bases) run
+    on ``device`` and come back as host numpy. A tracker built without one
+    takes the device of the provider it is handed to, and otherwise the
+    CUDA device at its first draw (``resolve_device``).
+    """
+
+    def __init__(
+        self,
+        dim: int = _FEAT_DIM,
+        stickiness: float = 0.25,
+        max_objects: int = 262_144,
+        device: str | torch.device | None = None,
+    ) -> None:
+        self.dim = dim
+        self.device: torch.device | None = None
+        self._one_key_draw: _OneKeyDraw | None = None
+        if device is not None:
+            self._bind(resolve_device(device))
+        # Hard bound on per-object state (warmth vectors, rate EMAs,
+        # state-bytes records): fold_rates() evicts the COLDEST entries
+        # (lowest folded req/sec; unknown rate counts as 0) down to the
+        # cap, so the hottest objects always survive. ``evictions`` counts
+        # dropped entries.
+        self.max_objects = int(max_objects)
+        self.evictions = 0
+        # EMA coefficient toward the serving node's embedding per unit
+        # weight; 0.0 disables learning. The default keeps MULTI-node
+        # warmth: with interleaved traffic the feature converges to the
+        # traffic-share mix of the serving nodes' embeddings.
+        self.stickiness = stickiness
+        self._obj: dict[str, np.ndarray] = {}
+        self._node_cache: dict[str, np.ndarray] = {}
+        # Measured per-object cost features: request counts since the last
+        # fold_rates() tick, the folded req/sec EMA, and the last observed
+        # migration-snapshot size. Every map is replaced, never mutated in
+        # place: the solver thread reads them concurrently.
+        self._req_window: dict[str, float] = {}
+        self._rates: dict[str, float] = {}
+        self._state_bytes: dict[str, float] = {}
+        self._rate_fold_t = time.monotonic()
+
+    def _bind(self, device: torch.device) -> None:
+        """Draw on ``device`` from now on (the first binding wins).
+
+        On a CUDA device the one-key draw's graph is captured here, once:
+        a capture fails if another thread synchronises the device meanwhile,
+        so it happens when the tracker is built or handed to its provider,
+        before any solve runs beside it, and one capture at a time."""
+        with _CAPTURE_LOCK:
+            if self.device is not None:
+                return
+            if device.type == "cuda":
+                self._one_key_draw = _OneKeyDraw(self.dim, device)
+            self.device = device
+
+    def _draw(self, keys: list[str]) -> np.ndarray:
+        """(n, dim) float32 host copy of ``_hash_features(keys)``, drawn on the tracker's device."""
+        if self.device is None:
+            self._bind(resolve_device(None))
+        if len(keys) == 1 and self._one_key_draw is not None:
+            return self._one_key_draw(keys[0])[None, :]
+        return _hash_features(keys, self.dim, device=self.device).cpu().numpy()
+
+    def _node_vec(self, address: str) -> np.ndarray:
+        vec = self._node_cache.get(address)
+        if vec is None:
+            vec = self._unit_node_vecs([address], self._draw([address]))[0]
+        return vec
+
+    def _unit_node_vecs(self, addresses: list[str], draws: np.ndarray) -> list[np.ndarray]:
+        """Normalise and cache node embeddings, one row at a time as ``_node_vec`` does."""
+        out = []
+        for address, vec in zip(addresses, draws):
+            vec = vec / max(float(np.linalg.norm(vec)), 1e-9)
+            self._node_cache[address] = vec
+            out.append(vec)
+        return out
+
+    def observe(self, key: str, node_address: str, weight: float = 1.0) -> None:
+        """Record that ``key`` was served by ``node_address``.
+
+        ``weight`` scales the pull. Alpha is capped below 1 so a single
+        heavy observation can never fully erase accumulated warmth."""
+        self._req_window[key] = self._req_window.get(key, 0.0) + max(0.0, weight)
+        alpha = min(0.95, self.stickiness * weight)
+        if alpha <= 0.0:
+            return
+        target = self._node_vec(node_address)
+        cur = self._obj.get(key)
+        if cur is None and len(self._obj) >= 2 * self.max_objects:
+            # Backstop when nothing drives fold_rates(): fold (evicting down
+            # to max_objects) before admitting a new key, so the tracker
+            # never exceeds 2x its cap.
+            self.fold_rates(min_dt=0.0)
+            cur = self._obj.get(key)
+        if cur is None:
+            # Cold object: blend from the weak hashed-identity base that
+            # obj_features() would have used.
+            cur = self._draw([key])[0] * 0.1
+        # Atomic swap (never mutate in place).
+        new = (1.0 - alpha) * cur + alpha * target
+        norm = float(np.linalg.norm(new))
+        if norm > 1e-9:
+            new = new / norm
+        self._obj[key] = new
+
+    def obj_features(self, keys: list[str]) -> np.ndarray:
+        """(n, dim) features: learned EMA, hashed identity x 0.1 for cold objects."""
+        out = self._draw(keys) * 0.1
+        for i, k in enumerate(keys):
+            vec = self._obj.get(k)
+            if vec is not None:
+                out[i] = vec
+        return out
+
+    def node_features(self, addresses: list[str]) -> np.ndarray:
+        """(m, dim) embeddings matching what ``observe`` pulled toward."""
+        if not addresses:
+            return np.zeros((0, self.dim), np.float32)
+        cache = self._node_cache
+        missing = list(dict.fromkeys(a for a in addresses if a not in cache))
+        if missing:  # one batch of draws for the nodes not seen yet
+            self._unit_node_vecs(missing, self._draw(missing))
+        return np.stack([self._node_vec(a) for a in addresses]).astype(np.float32)
+
+    # ------------------------------------------- measured cost features
+    def fold_rates(self, beta: float = 0.3, min_dt: float = 0.05) -> None:
+        """Fold the since-last-tick request window into per-object req/sec
+        EMAs, then enforce ``max_objects`` on every per-object map. Builds
+        fresh dicts and swaps them in."""
+        now = time.monotonic()
+        dt = now - self._rate_fold_t
+        if dt < min_dt:
+            return
+        self._rate_fold_t = now
+        window, self._req_window = self._req_window, {}
+        rates: dict[str, float] = {}
+        for k, old in self._rates.items():
+            new = (1.0 - beta) * old + beta * (window.pop(k, 0.0) / dt)
+            if new > 1e-6:  # drop cooled-off objects: the map stays bounded
+                rates[k] = new
+        for k, cnt in window.items():
+            rates[k] = beta * (cnt / dt)
+        self._rates = rates
+        # Evict coldest-by-rate first so the warmth that matters survives.
+        for name in ("_obj", "_state_bytes"):
+            cur = getattr(self, name)
+            over = len(cur) - self.max_objects
+            if over <= 0:
+                continue
+            doomed = sorted(cur, key=lambda k: rates.get(k, 0.0))[:over]
+            kept = dict(cur)
+            for k in doomed:
+                del kept[k]
+            setattr(self, name, kept)
+            self.evictions += over
+        if len(rates) > self.max_objects:
+            over = len(rates) - self.max_objects
+            doomed = sorted(rates, key=rates.get)[:over]
+            kept_r = dict(rates)
+            for k in doomed:
+                del kept_r[k]
+            self._rates = kept_r
+            self.evictions += over
+
+    def total_rate(self) -> float:
+        return float(sum(self._rates.values()))
+
+    def object_rates(self) -> dict[str, float]:
+        """Snapshot (a copy) of the folded per-object req/sec EMAs, keyed
+        ``"{type_name}.{id}"``; the read-scale hotness detector reads it."""
+        return dict(self._rates)
+
+    def note_state_bytes(self, key: str, nbytes: int) -> None:
+        """Record the object's last migration-snapshot size (its state weight)."""
+        self._state_bytes[key] = float(max(0, nbytes))
+
+    def move_weights(
+        self,
+        keys: list[str],
+        *,
+        rate_scale: float = 10.0,
+        bytes_scale: float = 1 << 20,
+        max_weight: float = 16.0,
+    ) -> np.ndarray:
+        """(n,) per-object move prices for the solver's stay-put discount:
+        ``1.0`` for a cold object, growing with measured request rate and
+        snapshot size, capped at ``max_weight``. A provider built with the
+        tracker uses it as its ``object_costs`` hook."""
+        rates, sizes = self._rates, self._state_bytes  # snapshot refs
+        out = np.ones((len(keys),), np.float32)
+        for i, k in enumerate(keys):
+            w = 1.0 + rates.get(k, 0.0) / rate_scale + sizes.get(k, 0.0) / bytes_scale
+            out[i] = min(max_weight, w)
+        return out
 
 
 def _least_loaded_spread(load, alive, cap, n_real: int, count: int) -> np.ndarray:
@@ -154,13 +476,17 @@ def _class_refresh_device(base, counts, cap_alive, g_seed, *, mode, move_cost, e
 # -- solver convergence telemetry helpers -------------------------------------
 
 
-def _seed_warm_ratio(seed: torch.Tensor | None) -> float:
-    """Warm fraction of a potential seed: finite entries / total.
+def _seed_warm_ratio(seed) -> float:
+    """Warm fraction of a potential seed (a tensor or a host array):
+    finite entries / total.
 
     The solvers cold-fill non-finite seed entries to zero, so the finite
     fraction IS the warm-start hit ratio. No seed at all reads as 0.0.
     """
-    if seed is None or seed.numel() == 0:
+    if seed is None:
+        return 0.0
+    seed = torch.as_tensor(seed)
+    if seed.numel() == 0:
         return 0.0
     return float(torch.isfinite(seed).float().mean().cpu())
 
@@ -170,13 +496,16 @@ def _conv_fields(conv: dict) -> dict:
 
     ``compile_ms`` and ``exec_ms`` keep their -1 ("unobserved"): eager
     PyTorch compiles nothing per solve (the port's CUDA kernels are built
-    once, outside any solve), and the chunk and device fields belong to the
-    hierarchical solve, which is not ported.
+    once, outside any solve). ``chunks``, ``chunk_ms`` and ``devices`` come
+    from the hierarchical solve.
     """
     return {
         "solver_iters": int(conv.get("solver_iters", 0)),
         "residual": float(conv.get("residual", -1.0)),
         "warm_ratio": float(conv.get("warm_ratio", -1.0)),
+        "chunks": int(conv.get("chunks", 0)),
+        "chunk_ms": [float(x) for x in conv.get("chunk_ms", ())],
+        "devices": int(conv.get("devices", 0)),
     }
 
 
@@ -341,6 +670,9 @@ class PlanState:
     # (node_axis,) node potentials of the committing solve (a tensor on the
     # provider's device; None for solves that produce none, e.g. greedy).
     g: torch.Tensor | None
+    # (G,) coarse-stage group potentials of a hierarchical solve (host
+    # numpy; None for flat solves): the next coarse stage's warm seed.
+    coarse_g: np.ndarray | None
     # (node_axis,) PLANNED per-node seat counts at commit (diagnostic).
     seat_counts: np.ndarray
     epoch: int  # directory epoch the plan was committed at
@@ -371,9 +703,9 @@ class SolveStats:
     warm_ratio: float = -1.0  # finite fraction of the warm-start seed
     compile_ms: float = -1.0  # compile share of solve_ms
     exec_ms: float = -1.0  # solve_ms minus compile_ms
-    chunks: int = 0  # chunked-hierarchical chunk count (0 = unchunked)
-    chunk_ms: list = field(default_factory=list)  # per-chunk wall ms
-    devices: int = 0  # mesh devices of a hierarchical solve (0 = not one)
+    chunks: int = 0  # hierarchical chunk count (0 = not a hierarchical solve)
+    chunk_ms: list = field(default_factory=list)  # per-chunk wall ms (chunked solves)
+    devices: int = 0  # devices of a hierarchical solve: 1 (0 = not one)
     # Bounded record of prior completed solves (most recent last, each with
     # an empty history of its own).
     history: list = field(default_factory=list)
@@ -444,12 +776,17 @@ class TorchObjectPlacement(ObjectPlacement):
         affinity_weight: float = 0.0,
         device: str | torch.device | None = None,
     ) -> None:
-        if mode == "hierarchical":
-            raise NotImplementedError(_LATER_HIERARCHICAL)
         if mode != "auto" and mode not in _SOLVER_MODES:
             raise ValueError(f"unknown placement mode {mode!r}")
-        if obj_features is not None or node_features is not None or affinity_tracker is not None:
-            raise NotImplementedError(_LATER_AFFINITY)
+        # Feature hooks and a tracker are read only by the hierarchical
+        # solve: a flat mode would ignore them, so refuse at construction.
+        # "auto" resolves to "hierarchical" when they are present.
+        has_affinity = bool(obj_features or node_features or affinity_tracker)
+        if has_affinity and mode not in ("hierarchical", "auto"):
+            raise ValueError(
+                "obj_features/node_features/affinity_tracker are only consumed "
+                f'by mode="hierarchical" (got mode={mode!r})'
+            )
         if mesh is not None:
             raise NotImplementedError(_LATER_MESH)
         if affinity_weight > 0.0:
@@ -471,11 +808,28 @@ class TorchObjectPlacement(ObjectPlacement):
         # full re-solve: with move_cost/eps >> 1 only capacity pressure
         # (dead nodes, skew) moves anything.
         self._move_cost = move_cost
-        # The Server wires AffinityTracker.observe when a provider carries
-        # one; this provider never does (yet).
-        self.affinity_tracker = None
-        # Per-object move prices (keys -> (n,) weights, 1.0 = baseline):
-        # non-uniform weights route flat solves through the dense pipeline.
+        self._has_affinity = has_affinity
+        # Carrying the tracker lets the Server auto-wire
+        # AffinityTracker.observe into its dispatch path.
+        self.affinity_tracker = affinity_tracker
+        if affinity_tracker is not None:
+            if isinstance(affinity_tracker, AffinityTracker):
+                # A tracker built without a device draws on the provider's.
+                affinity_tracker._bind(self.device)
+            obj_features = obj_features or affinity_tracker.obj_features
+            node_features = node_features or affinity_tracker.node_features
+        # Hierarchical-mode feature hooks: callables (keys/addresses ->
+        # (n, d) numpy or tensor). The default is hashed identity, drawn on
+        # the provider's device.
+        hashed = functools.partial(_hash_features, device=self.device)
+        self._obj_features = obj_features or hashed
+        self._node_features = node_features or hashed
+        # Per-object move prices (keys -> (n,) weights, 1.0 = baseline),
+        # the tracker's measured move_weights by default: non-uniform
+        # weights route flat solves through the dense (or at scale,
+        # hierarchical) pipeline.
+        if object_costs is None and affinity_tracker is not None:
+            object_costs = affinity_tracker.move_weights
         self._object_costs = object_costs
         # (src, dst) -> normalized byte-rate weight, stored for the affinity
         # refine of a later slice (set_edge_graph).
@@ -501,7 +855,9 @@ class TorchObjectPlacement(ObjectPlacement):
         self.stats = SolveStats()
 
     def _solver_mode(self) -> str:
-        """Resolve ``mode="auto"``: ``"sinkhorn"`` on a CUDA device,
+        """Resolve ``mode="auto"``: ``"hierarchical"`` when a locality signal
+        (a tracker or feature hooks) is present, since it is the only mode
+        that reads one; otherwise ``"sinkhorn"`` on a CUDA device and
         ``"greedy"`` on the CPU.
 
         The JAX provider makes the same accelerator/host split on
@@ -513,7 +869,10 @@ class TorchObjectPlacement(ObjectPlacement):
         ``directory_greedy`` phases (``PERF.md``).
         """
         if self._mode == "auto":
-            self._mode = "sinkhorn" if self.device.type == "cuda" else "greedy"
+            if self._has_affinity:
+                self._mode = "hierarchical"
+            else:
+                self._mode = "sinkhorn" if self.device.type == "cuda" else "greedy"
         return self._mode
 
     def _archived_history(self) -> list:
@@ -925,6 +1284,163 @@ class TorchObjectPlacement(ObjectPlacement):
             self._nodes[self._node_order[idx]].load += 1.0
         self._epoch += 1
 
+    # ------------------------------------------------- hierarchical solve
+    def _build_obj_feat(
+        self, keys: list[str], n_pad: int, node_order: list[str],
+        cur_idx, move_cost: float, move_w,
+    ) -> torch.Tensor:
+        """Streamed (n_pad, d) float32 object-feature block on the device.
+
+        The final block is allocated once and filled in key-chunks of
+        ``_OBJ_FEAT_STREAM_ROWS``: per chunk the feature hook is called,
+        its result sanitized (non-finite entries become 0.0: one NaN row
+        would poison the coarse cost's std and with it every object's
+        cost), the stay-put pull added, and the rows written in place. Pad
+        rows (``n_pad - n``) come from the cached
+        :func:`_pad_feature_block`; the caller slices them off.
+
+        With ``move_cost > 0`` and current seats (a routed flat solve),
+        each seated object's feature is pulled ``move_cost`` toward its
+        seat's embedding (scaled by its price in ``move_w``): node
+        embeddings are unit vectors whose cross-affinities are ~1/sqrt(d)
+        noise, so the pull raises the current seat's affinity by about
+        ``move_cost``, the feature-space analog of the flat path's
+        stay-put discount.
+        """
+        n = len(keys)
+        dev = self.device
+        node_emb = None
+        seat = None
+        if move_cost > 0.0 and cur_idx is not None and node_order:
+            node_emb = _feature_tensor(self._node_features(node_order), dev)
+            seat = torch.from_numpy(np.asarray(cur_idx, np.int64)).to(dev)
+        out: torch.Tensor | None = None
+        step = max(1, _OBJ_FEAT_STREAM_ROWS)
+        for start in range(0, n, step):
+            chunk_keys = keys[start : start + step]
+            stop = start + len(chunk_keys)
+            feats = _feature_tensor(self._obj_features(chunk_keys), dev)
+            if not bool(torch.isfinite(feats).all()):
+                feats = torch.nan_to_num(feats, nan=0.0, posinf=0.0, neginf=0.0)
+            if out is None:
+                out = torch.empty((n_pad, feats.shape[1]), dtype=torch.float32, device=dev)
+            if node_emb is not None:
+                s = seat[start:stop]
+                seated = (s >= 0) & (s < len(node_order))
+                pull = torch.zeros_like(feats)
+                pull[seated] = node_emb[s[seated]]
+                if move_w is not None:
+                    # A hot/heavy object's pull scales with its price, as
+                    # the dense path's stay-put discount does.
+                    pull *= _feature_tensor(move_w[start:stop], dev)[:, None]
+                feats = feats + move_cost * pull
+            out[start:stop] = feats
+        if out is None:  # empty directory: width from the hook's contract
+            probe = self._obj_features([])
+            if not isinstance(probe, torch.Tensor):
+                probe = np.asarray(probe, np.float32)
+            d = probe.shape[1] if probe.ndim == 2 else _FEAT_DIM
+            out = torch.empty((n_pad, d), dtype=torch.float32, device=dev)
+        if n_pad > n:
+            out[n:] = _pad_feature_block(n_pad - n, out.shape[1], dev)
+        return out
+
+    def _hierarchical_solve(
+        self, keys: list[str], node_order: list[str], cap, alive,
+        cur_idx=None, move_cost: float = 0.0, move_w=None, coarse_g_init=None,
+    ):
+        """Two-level OT re-solve over object and node features.
+
+        O(n x (groups + group_size + d)) on the device instead of the flat
+        modes' (bucket x node_axis) cost (see
+        :mod:`rio_tpu_torch.parallel.hierarchical`). Reads only the
+        lock-snapshotted ``node_order``/``cap``/``alive``.
+
+        ``cur_idx``/``move_cost``/``move_w`` carry a routed flat solve's
+        stay-put semantics into feature space (:meth:`_build_obj_feat`);
+        native ``mode="hierarchical"`` solves pass none (the tracker's
+        learned features are the stickiness there). ``coarse_g_init``
+        warm-starts the coarse stage when its length is this solve's group
+        count. Returns ``(assignment, g, coarse_g, conv)``: host int32 seats
+        of the ``len(keys)`` objects, no flat node potentials (None), the
+        coarse stage's (n_groups,) host potentials, and the convergence
+        record SolveStats surfaces.
+        """
+        dev = self.device
+        # A COMPACT node axis (real nodes padded to a group multiple), not
+        # the static one: trailing all-dead groups would concentrate the
+        # coarse quotas into the few live groups and overflow their buckets.
+        m_real = max(1, len(node_order))
+        group_size = 8
+        m = -(-m_real // group_size) * group_size
+        n_groups = m // group_size
+        cap_np = np.zeros((m,), np.float32)
+        alive_np = np.zeros((m,), np.float32)
+        cap_np[:m_real] = np.asarray(cap, np.float32)[:m_real]
+        alive_np[:m_real] = np.asarray(alive, np.float32)[:m_real]
+        # The object axis pads to a power-of-two bucket (the JAX provider's
+        # bounded set of shapes); pad rows spread under the capacity
+        # marginals like real rows and are sliced off at the end.
+        n = len(keys)
+        bucket_n = _next_bucket(n)
+        # Chunks halve the rows while they exceed _HIER_CHUNK_ROWS.
+        n_chunks = 1
+        while bucket_n // n_chunks > _HIER_CHUNK_ROWS and (bucket_n // n_chunks) % 2 == 0:
+            n_chunks *= 2
+        rows_chunk = bucket_n // n_chunks
+        # Fine bucket from the fullest group's capacity share, quantized to
+        # a power of two.
+        live_cap = (cap_np * alive_np).reshape(n_groups, group_size).sum(axis=1)
+        share = live_cap.max() / max(live_cap.sum(), 1e-9)
+        bucket_sz = _next_bucket(max(8, int(1.3 * rows_chunk * float(share))), minimum=8)
+
+        obj_feat = self._build_obj_feat(keys, bucket_n, node_order, cur_idx, move_cost, move_w)
+        d_feat = obj_feat.shape[1]
+        node_feat = torch.zeros((d_feat, m), dtype=torch.float32, device=dev)
+        if node_order:
+            nf = _feature_tensor(self._node_features(node_order), dev)
+            assert nf.shape[1] == d_feat, (
+                f"node feature dim {nf.shape[1]} != object feature dim {d_feat}"
+            )
+            if not bool(torch.isfinite(nf).all()):
+                nf = torch.nan_to_num(nf, nan=0.0, posinf=0.0, neginf=0.0)
+            node_feat[:, : len(node_order)] = nf.T
+        kw = dict(
+            n_groups=n_groups,
+            bucket=min(bucket_sz, rows_chunk),
+            eps=self._eps,
+            coarse_iters=self._n_iters,
+            fine_iters=self._n_iters,
+        )
+        # Warm coarse seed only while the group axis still matches; cold
+        # start IS the zero seed.
+        if coarse_g_init is None or np.asarray(coarse_g_init).shape != (n_groups,):
+            warm_ratio = 0.0
+            coarse_g_init = np.zeros((n_groups,), np.float32)
+        else:
+            warm_ratio = _seed_warm_ratio(coarse_g_init)
+        conv: dict = {
+            "solver_iters": 2 * self._n_iters,  # coarse + fine stages
+            "warm_ratio": warm_ratio,
+            "chunks": n_chunks,
+            "devices": 1,
+        }
+        cap_t, alive_t, seed_t = self._to_device(
+            cap_np, alive_np, np.asarray(coarse_g_init, np.float32)
+        )
+        if n_chunks > 1:
+            res, conv["chunk_ms"] = chunked_hierarchical_assign_timed(
+                obj_feat, node_feat, cap_t, alive_t, n_chunks=n_chunks,
+                coarse_g_init=seed_t, **kw,
+            )
+        else:
+            res = hierarchical_assign(
+                obj_feat, node_feat, cap_t, alive_t, coarse_g_init=seed_t, **kw
+            )
+        assignment = res.assignment[:n].cpu().numpy()
+        conv["residual"] = float(res.coarse_err.cpu())
+        return assignment, None, res.coarse_g.cpu().numpy(), conv
+
     # ---------------------------------------------------- incremental solve
     def _delta_gates_ok(self, plan: PlanState | None, force: bool) -> bool:
         """A plan must exist; ``force`` overrides the rest (threshold
@@ -1013,8 +1529,23 @@ class TorchObjectPlacement(ObjectPlacement):
         den = float(np.sum(quota.astype(np.float64) ** 2 / safe_cap))
         return bool(den > 0.0 and num > self._delta_audit_ratio * den)
 
+    def _hierarchical_fill(self, disp_keys, node_order, residual, load, plan: PlanState):
+        """Both delta paths' hierarchical fill: the displaced keys through the
+        two-level solve against the residual quotas, warm from the plan's
+        coarse potentials. Returns ``(fill, coarse_g, conv)``, ``fill`` host
+        int32 seats on the real node axis."""
+        res_cap = residual.astype(np.float32)
+        res_alive = (residual > 0).astype(np.float32)
+        fill, _, coarse_g, conv = self._hierarchical_solve(
+            disp_keys, node_order, res_cap, res_alive, coarse_g_init=plan.coarse_g
+        )
+        fill = _route_unseatable(
+            np.asarray(fill, np.int32), len(node_order), load, res_alive, res_cap
+        )
+        return fill, coarse_g, conv
+
     async def _delta_fast_rebalance(
-        self, fast, *, n, mode, move_sink, cap, alive, node_order, plan, snapshot_epoch,
+        self, fast, *, n, mode, move_sink, load, cap, alive, node_order, plan, snapshot_epoch,
     ) -> int:
         """Solve + commit an O(displaced) fast delta (see
         :meth:`_delta_fast_snapshot`): device work off the event loop, epoch
@@ -1034,10 +1565,15 @@ class TorchObjectPlacement(ObjectPlacement):
             t0 = time.perf_counter()
             with span("placement_solve", mode=solved_as, n=n):
                 g_new = None
+                coarse_new = None
                 conv: dict = {}
                 if d == 0:
                     # Nothing displaced (pure load jitter): the plan stands.
                     fill = np.zeros((0,), np.int32)
+                elif mode == "hierarchical":
+                    fill, coarse_new, conv = self._hierarchical_fill(
+                        [k for k, _ in disp], node_order, residual, load, plan
+                    )
                 else:
                     if mode in ("sinkhorn", "scaling"):
                         g_new, score, ref_err = self._class_refresh(
@@ -1053,9 +1589,9 @@ class TorchObjectPlacement(ObjectPlacement):
                     fill = residual_capacity_assign(score, residual)
                 counts_after = (retained + np.bincount(fill, minlength=m)).astype(np.float64)
                 stale = self._audit(counts_after, quota, cap_alive)
-                return fill, g_new, _elapsed_ms(t0), stale, counts_after, conv
+                return fill, g_new, coarse_new, _elapsed_ms(t0), stale, counts_after, conv
 
-        fill, g, solve_ms, stale, counts_after, conv = await asyncio.to_thread(_solve)
+        fill, g, coarse_g, solve_ms, stale, counts_after, conv = await asyncio.to_thread(_solve)
 
         async with self._lock:
             if self._epoch != snapshot_epoch:
@@ -1089,6 +1625,7 @@ class TorchObjectPlacement(ObjectPlacement):
             self._epoch += 1
             self._plan = PlanState(
                 g=g if g is not None else plan.g,
+                coarse_g=coarse_g if coarse_g is not None else plan.coarse_g,
                 seat_counts=np.asarray(counts_after, np.int64),
                 epoch=self._epoch,
                 liveness_fp=self._sched_fp(),
@@ -1116,7 +1653,8 @@ class TorchObjectPlacement(ObjectPlacement):
         return moved
 
     def _delta_solve(
-        self, cur_idx, cap, alive, plan: PlanState, mode: str, obj_w, force: bool,
+        self, keys, cur_idx, load, cap, alive, node_order, plan: PlanState, mode: str,
+        obj_w, force: bool,
     ):
         """Delta rebalance: re-solve ONLY the displaced objects against
         residual capacity, warm-starting from the previous plan.
@@ -1128,8 +1666,10 @@ class TorchObjectPlacement(ObjectPlacement):
         their seats by construction, and the fill targets each node's
         residual quota, so the result lands on exactly the integer per-node
         counts of ``integer_fair_quotas``. Host numpy around one M x M warm
-        refresh. Returns ``(assignment, g, displaced, stale, conv)``, or
-        None when a gate says this event needs the full solve.
+        refresh, or, in hierarchical mode, the displaced keys through the
+        two-level solve against the residual quotas. Returns ``(assignment,
+        g, coarse_g, displaced, stale, conv)``, or None when a gate says this
+        event needs the full solve.
         """
         n = int(cur_idx.shape[0])
         if n == 0 or not self._delta_gates_ok(plan, force):
@@ -1154,7 +1694,7 @@ class TorchObjectPlacement(ObjectPlacement):
         d = int(disp_pos.shape[0])
         if d == 0:
             # Nothing displaced (e.g. a node RETURNED): the plan stands.
-            return cur.astype(np.int32), None, 0, False, {}
+            return cur.astype(np.int32), None, None, 0, False, {}
         if not force and d > self._delta_threshold * n:
             return None
         # retained[j] = min(counts[j], quota[j]) on schedulable nodes, 0
@@ -1163,25 +1703,34 @@ class TorchObjectPlacement(ObjectPlacement):
         residual = quota - retained
 
         g_new = None
+        coarse_new = None
         conv: dict = {}
-        if mode in ("sinkhorn", "scaling"):
-            g_new, score, ref_err = self._class_refresh(
-                cap, alive, np.bincount(cur, minlength=m), cap_alive, mode, plan,
+        if mode == "hierarchical":
+            fill, coarse_new, conv = self._hierarchical_fill(
+                [keys[i] for i in disp_pos.tolist()], node_order, residual, load, plan
             )
-            conv = {
-                "solver_iters": max(4, min(8, self._n_iters)),
-                "residual": ref_err,
-                "warm_ratio": _seed_warm_ratio(plan.g),
-            }
         else:
-            # Greedy has no potentials: order nodes by how full their
-            # retained population already is.
-            score = np.where(sched, retained / np.maximum(quota, 1), 1e18)
-        fill = residual_capacity_assign(score, residual)
+            if mode in ("sinkhorn", "scaling"):
+                g_new, score, ref_err = self._class_refresh(
+                    cap, alive, np.bincount(cur, minlength=m), cap_alive, mode, plan,
+                )
+                conv = {
+                    "solver_iters": max(4, min(8, self._n_iters)),
+                    "residual": ref_err,
+                    "warm_ratio": _seed_warm_ratio(plan.g),
+                }
+            else:
+                # Greedy has no potentials: order nodes by how full their
+                # retained population already is.
+                score = np.where(sched, retained / np.maximum(quota, 1), 1e18)
+            fill = residual_capacity_assign(score, residual)
         out = cur.astype(np.int32).copy()
         out[disp_pos] = fill
+        # Transport-cost audit: the flat fills hit the quotas exactly; the
+        # hierarchical fill is capacity-proportional per group and can
+        # drift, and a tripped audit sends the next solve full.
         stale = self._audit(np.bincount(out, minlength=m), quota, cap_alive)
-        return out, g_new, d, stale, conv
+        return out, g_new, coarse_new, d, stale, conv
 
     # ------------------------------------------------ communication graph
     def set_edge_graph(self, rows) -> int:
@@ -1351,8 +1900,10 @@ class TorchObjectPlacement(ObjectPlacement):
         only when a delta gate trips. ``delta=False`` forces the full
         solve; ``delta=True`` forces the delta path whenever a plan exists.
         ``stats.mode`` reports which path ran: ``"<mode>+delta"``,
-        ``"<mode>+collapsed"``, ``"<mode>"`` (dense or greedy) or
-        ``"<mode>+no_capacity"``.
+        ``"<mode>+collapsed"``, ``"<mode>"`` (dense, greedy or hierarchical),
+        ``"<mode>+hier_at_scale"`` (a flat rebalance above
+        ``_FLAT_REBALANCE_MAX_ROWS`` padded rows, routed through the
+        hierarchical solve) or ``"<mode>+no_capacity"``.
 
         The epoch is snapshotted before the solve, and the result is
         discarded if the directory changed underneath it. ``move_sink``
@@ -1360,8 +1911,6 @@ class TorchObjectPlacement(ObjectPlacement):
         into planned moves: the solve commits but rows stand, and the sink
         (the migration coordinator) actuates each move, outside the lock.
         """
-        if mode == "hierarchical":
-            raise NotImplementedError(_LATER_HIERARCHICAL)
         mode = self._solver_mode() if mode in (None, "auto") else mode
         if mode not in _SOLVER_MODES:
             raise ValueError(f"unknown placement mode {mode!r}")
@@ -1385,7 +1934,7 @@ class TorchObjectPlacement(ObjectPlacement):
             return 0
         if fast is not None:
             return await self._delta_fast_rebalance(
-                fast, n=n, mode=mode, move_sink=move_sink, cap=cap, alive=alive,
+                fast, n=n, mode=mode, move_sink=move_sink, load=load, cap=cap, alive=alive,
                 node_order=node_order, plan=plan, snapshot_epoch=snapshot_epoch,
             )
 
@@ -1399,39 +1948,54 @@ class TorchObjectPlacement(ObjectPlacement):
                 # nodes is pure churn — stay put until liveness returns.
                 solved_as = f"{mode}+no_capacity"
                 with span("placement_solve", mode=solved_as, n=n):
-                    return cur_idx.copy(), None, _elapsed_ms(t0), solved_as, 0, False, {}
+                    return cur_idx.copy(), None, None, _elapsed_ms(t0), solved_as, 0, False, {}
             obj_w = self._object_weights(keys)
             if delta is not False and plan is not None:
                 with span("placement_solve", mode=f"{mode}+delta", n=n):
                     d_res = self._delta_solve(
-                        cur_idx, cap, alive, plan, mode, obj_w, force=(delta is True),
+                        keys, cur_idx, load, cap, alive, node_order, plan, mode, obj_w,
+                        force=(delta is True),
                     )
                     if d_res is not None:
-                        out_d, g_d, displaced, stale, conv = d_res
+                        out_d, g_d, coarse_d, displaced, stale, conv = d_res
                         out_d = _route_unseatable(out_d, len(node_order), load, alive, cap)
                         return (
-                            out_d, g_d, _elapsed_ms(t0), f"{mode}+delta", displaced, stale, conv
+                            out_d, g_d, coarse_d, _elapsed_ms(t0), f"{mode}+delta",
+                            displaced, stale, conv,
                         )
-            if mode in ("sinkhorn", "scaling") and bucket > _FLAT_REBALANCE_MAX_ROWS:
-                raise NotImplementedError(
-                    f"a flat rebalance of {n} objects pads to {bucket} rows, above "
-                    f"{_FLAT_REBALANCE_MAX_ROWS}: {_LATER_HIERARCHICAL}"
-                )
-            collapse = mode in ("sinkhorn", "scaling") and obj_w is None
-            solved_as = f"{mode}+collapsed" if collapse else mode
+            # Above _FLAT_REBALANCE_MAX_ROWS padded rows a flat OT rebalance
+            # runs the two-level solve: hashed-identity features with the
+            # stay-put pull toward each object's current seat.
+            route_hier = mode in ("sinkhorn", "scaling") and bucket > _FLAT_REBALANCE_MAX_ROWS
+            collapse = mode in ("sinkhorn", "scaling") and obj_w is None and not route_hier
+            solved_as = (
+                f"{mode}+hier_at_scale"
+                if route_hier
+                else f"{mode}+collapsed" if collapse else mode
+            )
             with span("placement_solve", mode=solved_as, n=n), torch.profiler.record_function(
                 f"rio_tpu_torch.solve.{solved_as}"
             ):
-                assignment, g, conv = self._full_solve(
-                    mode, n, bucket, cur_idx, load, cap, alive, plan, obj_w
-                )
-                out = _route_unseatable(
-                    assignment[:n].cpu().numpy(), len(node_order), load, alive, cap
-                )
-            return out, g, _elapsed_ms(t0), solved_as, n, False, conv
+                coarse_g = None
+                if mode == "hierarchical" or route_hier:
+                    # Never builds the flat (bucket x node_axis) cost.
+                    assignment, g, coarse_g, conv = self._hierarchical_solve(
+                        keys, node_order, cap, alive,
+                        cur_idx=cur_idx if route_hier else None,
+                        move_cost=self._move_cost if route_hier else 0.0,
+                        move_w=obj_w if route_hier else None,
+                        coarse_g_init=plan.coarse_g if plan is not None else None,
+                    )
+                else:
+                    assignment, g, conv = self._full_solve(
+                        mode, n, bucket, cur_idx, load, cap, alive, plan, obj_w
+                    )
+                    assignment = assignment[:n].cpu().numpy()
+                out = _route_unseatable(assignment, len(node_order), load, alive, cap)
+            return out, g, coarse_g, _elapsed_ms(t0), solved_as, n, False, conv
 
         (
-            assignment, g, solve_ms, solved_as, displaced, stale, conv
+            assignment, g, coarse_g, solve_ms, solved_as, displaced, stale, conv
         ) = await asyncio.to_thread(_solve)
 
         async with self._lock:
@@ -1474,7 +2038,7 @@ class TorchObjectPlacement(ObjectPlacement):
             self._epoch += 1
             if not solved_as.endswith("+no_capacity"):
                 # Commit the plan the NEXT churn event deltas against. A
-                # delta with no fresh potentials carries the previous seed
+                # delta with no fresh potentials carries the previous seeds
                 # forward; a full solve resets the staleness counter.
                 delta_used = solved_as.endswith("+delta")
                 self._plan = PlanState(
@@ -1482,6 +2046,11 @@ class TorchObjectPlacement(ObjectPlacement):
                         g
                         if g is not None
                         else (plan.g if delta_used and plan is not None else None)
+                    ),
+                    coarse_g=(
+                        coarse_g
+                        if coarse_g is not None
+                        else (plan.coarse_g if delta_used and plan is not None else None)
                     ),
                     seat_counts=np.bincount(assignment, minlength=self._node_axis),
                     epoch=self._epoch,

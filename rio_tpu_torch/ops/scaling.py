@@ -24,6 +24,14 @@ Two implementations, with two bfloat16 semantics:
 
 :func:`scaling_core_auto` picks the kernel for CUDA tensors and the eager
 loop for CPU tensors.
+
+:func:`scaling_kernel`, :func:`scaling_core` and :func:`scaling_sinkhorn`
+also take a leading batch axis: a ``(G, n, m)`` cost with ``(G, n)`` masses,
+``(G, m)`` capacities and an optional ``(G, m)`` seed solves ``G`` problems
+at once, each with its own marginals, row shifts and warm gauge. The
+products of a batch are batched matrix products, so they need not round
+as a loop of the unbatched calls does: the hierarchical fine stage holds
+them to a tolerance, not to equal bits.
 """
 
 from __future__ import annotations
@@ -44,7 +52,7 @@ def _potentials(u: torch.Tensor, v: torch.Tensor, eps: float):
 
 
 def _warm_seed(g_init: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Effective warm seed and the global gauge ``s`` it is lowered by.
+    """Effective warm seed and the gauge ``s`` it is lowered by (one per problem).
 
     Non-finite entries (dead columns of the previous solve) cold-fill to 0.
     ``v0 = exp((g0 - s) / eps)`` with ``s = max(g0)`` keeps every exponent
@@ -54,7 +62,7 @@ def _warm_seed(g_init: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     per-row min-shift on the cost.
     """
     g0 = torch.where(torch.isfinite(g_init), g_init.float(), 0.0)
-    return g0, g0.max()
+    return g0, g0.max(dim=-1, keepdim=True).values
 
 
 def scaling_kernel(
@@ -75,13 +83,13 @@ def scaling_kernel(
     """
     cost = cost.float()
     a, b = normalize_marginals(row_mass, col_capacity)
-    shift = cost.min(dim=1, keepdim=True).values
+    shift = cost.min(dim=-1, keepdim=True).values
     shift = torch.where(torch.isfinite(shift), shift, 0.0)
     # In place on the one float32 temporary: at 1M x 1024 each extra
     # temporary is 4 GiB. x / (-eps) equals -x / eps exactly.
     K = cost - shift
     K.div_(-eps).exp_()
-    return a, b, K.to(kernel_dtype), shift[:, 0]
+    return a, b, K.to(kernel_dtype), shift[..., 0]
 
 
 def scaling_core(
@@ -116,16 +124,26 @@ def scaling_core(
         g_seed, s = _warm_seed(g_init)
         v = torch.exp(torch.clamp((g_seed - s) / eps, -60.0, 0.0))
     for _ in range(n_iters):
-        Kv = Kf @ v.to(kernel_dtype).float()
+        Kv = _matvec(Kf, v.to(kernel_dtype).float())
         u = torch.where(a > 0, a / Kv.clamp_min(1e-30), 0.0)
-        KTu = u.to(kernel_dtype).float() @ Kf
+        KTu = _vecmat(u.to(kernel_dtype).float(), Kf)
         v = torch.where(b > 0, b / KTu.clamp_min(1e-30), 0.0)
     return u, v, K, shift
 
 
+def _matvec(K: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``K @ v`` for (n, m) K, or per problem for (G, n, m) K and (G, m) v."""
+    return K @ v if K.dim() == 2 else (K @ v.unsqueeze(-1)).squeeze(-1)
+
+
+def _vecmat(u: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
+    """``u @ K`` for (n, m) K, or per problem for (G, n, m) K and (G, n) u."""
+    return u @ K if K.dim() == 2 else (u.unsqueeze(-2) @ K).squeeze(-2)
+
+
 def _log_domain_result(cost, row_mass, col_capacity, u, v, shift, eps, gauge=None):
     """Potentials ``(f, g)`` and the column-marginal error from a scaling solve."""
-    cost = cost.float() - shift[:, None]
+    cost = cost.float() - shift[..., None]
     _, b = normalize_marginals(row_mass, col_capacity)
     f, g = _potentials(u, v, eps)
     if gauge is not None:

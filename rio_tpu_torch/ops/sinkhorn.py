@@ -9,10 +9,19 @@ object ``i`` is ``argmin_j C[i, j] - g[j]``.
 Also here: capacity-aware rounding of the soft plan (from potentials or
 from the scaling-form state) and the largest-remainder exact-quota repair
 that lands every node on its integer quota.
+
+:func:`normalize_marginals`, :func:`marginal_err`, :func:`plan_rounded_assign`,
+:func:`exact_quota_repair` and :func:`route_sentinel_spill` also take a
+leading batch axis (``(G, n)`` rows, ``(G, n, m)`` costs): each of the ``G``
+problems is solved on its own, and row ``g`` of the result equals the
+unbatched call on problem ``g`` exactly. The hierarchical solve's fine
+stage runs its ``G`` per-group problems that way (the JAX fine stage is a
+``jax.vmap``).
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -36,11 +45,11 @@ def _safe_log(x: torch.Tensor) -> torch.Tensor:
 
 
 def normalize_marginals(row_mass: torch.Tensor, col_capacity: torch.Tensor):
-    """Scale both marginals to unit total mass (float32)."""
+    """Scale both marginals to unit total mass (float32), per problem of a batch."""
     a = row_mass.float()
     b = col_capacity.float()
-    a = a / a.sum().clamp_min(1e-30)
-    b = b / b.sum().clamp_min(1e-30)
+    a = a / a.sum(-1, keepdim=True).clamp_min(1e-30)
+    b = b / b.sum(-1, keepdim=True).clamp_min(1e-30)
     return a, b
 
 
@@ -56,9 +65,9 @@ def marginal_err(
     cost: torch.Tensor, f: torch.Tensor, g: torch.Tensor, b: torch.Tensor, eps: float
 ) -> torch.Tensor:
     """L1 column-marginal violation of the implied plan (diagnostic)."""
-    log_p = (f[:, None] + g[None, :] - cost.float()) / eps
-    col = torch.exp(torch.where(torch.isfinite(log_p), log_p, _NEG_INF)).sum(dim=0)
-    return (col - b).abs().sum()
+    log_p = (f[..., :, None] + g[..., None, :] - cost.float()) / eps
+    col = torch.exp(torch.where(torch.isfinite(log_p), log_p, _NEG_INF)).sum(dim=-2)
+    return (col - b).abs().sum(-1)
 
 
 def pad_axis_to(x: torch.Tensor, size: int, axis: int, fill: float) -> torch.Tensor:
@@ -108,8 +117,8 @@ def sinkhorn(
 def _quantiles(is_real: torch.Tensor) -> torch.Tensor:
     """Each real row's deterministic quantile ``(rank + 0.5) / n_real``; 0.5 for padding."""
     realf = is_real.float()
-    n_real = realf.sum().clamp_min(1.0)
-    rank = torch.cumsum(realf, dim=0) - 1.0
+    n_real = realf.sum(-1, keepdim=True).clamp_min(1.0)
+    rank = torch.cumsum(realf, dim=-1) - 1.0
     return torch.where(is_real, (rank + 0.5) / n_real, 0.5)
 
 
@@ -126,15 +135,15 @@ def plan_rounded_assign(
     """
     cost = cost.float()
     is_real = torch.isfinite(f)
-    logit = (f[:, None] + g[None, :] - cost) / eps
+    logit = (f[..., :, None] + g[..., None, :] - cost) / eps
     alive_cols = torch.isfinite(g)
     padding_logit = torch.where(alive_cols, 0.0, _NEG_INF)
-    logit = torch.where(is_real[:, None], logit, padding_logit[None, :])
-    p = torch.softmax(logit, dim=1)
-    cum = torch.cumsum(p, dim=1)
+    logit = torch.where(is_real[..., :, None], logit, padding_logit[..., None, :])
+    p = torch.softmax(logit, dim=-1)
+    cum = torch.cumsum(p, dim=-1)
     q = _quantiles(is_real)
-    idx = (cum < q[:, None]).sum(dim=1, dtype=torch.int32)
-    return idx.clamp(0, cost.shape[1] - 1)
+    idx = (cum < q[..., None]).sum(dim=-1, dtype=torch.int32)
+    return idx.clamp(0, cost.shape[-1] - 1)
 
 
 def plan_rounded_assign_from_scaling(
@@ -172,17 +181,26 @@ def exact_quota_repair(
     empty.
 
     Args:
-      idx: (n,) int32 initial assignment (e.g. from plan rounding).
-      expected_counts: (m,) float expected objects per column; sums to ~n.
-      prefer_keep: optional (n,) bool — objects to evict LAST from an
+      idx: (..., n) int32 initial assignment (e.g. from plan rounding), in
+        ``[0, m)``.
+      expected_counts: (..., m) float expected objects per column; each
+        problem's sums to ~n.
+      prefer_keep: optional (..., n) bool — objects to evict LAST from an
         over-quota column.
+
+    A batch of problems is repaired in one pass: each row's column ``j``
+    becomes the cell ``g * m + j``, so one stable sort ranks every row's
+    objects within their columns, and the refill searches each row's own
+    deficit cumsum.
     """
-    n = idx.shape[0]
-    m = expected_counts.shape[0]
+    n = idx.shape[-1]
+    m = expected_counts.shape[-1]
     dev = idx.device
-    # JAX's bincount(length=m) drops indices >= m; minlength only grows.
-    counts = torch.bincount(idx, minlength=m)[:m]
-    scaled = expected_counts.float().clamp_min(0.0)
+    n_rows = math.prod(idx.shape[:-1])
+    idx2 = idx.reshape(n_rows, n)
+    cell = torch.arange(n_rows, device=dev)[:, None] * m + idx2  # (rows, n) int64
+    counts = torch.bincount(cell.reshape(-1), minlength=n_rows * m).view(n_rows, m)
+    scaled = expected_counts.reshape(n_rows, m).float().clamp_min(0.0)
     # NO global rescale to sum n here: multiplying every column by
     # n/sum(scaled) perturbs each by the fp32 summation error, and at
     # 2^24-scale totals that flips floor/remainder units on exact-integer
@@ -193,34 +211,37 @@ def exact_quota_repair(
     # silently renormalized.
     base = torch.floor(scaled).to(torch.int32)
     rem = scaled - base
-    short = torch.clamp(n - base.sum(), 0, m)
+    short = torch.clamp(n - base.sum(-1, keepdim=True), 0, m)
     # Largest remainders get the leftover units; remainder ties prefer the
     # more-occupied column, then the lower index (jnp.lexsort((-counts,
     # -rem)) as two stable sorts, secondary key first).
-    by_count = torch.argsort(-counts, stable=True)
-    rem_order = by_count[torch.argsort(-rem[by_count], stable=True)]
-    bonus = torch.zeros(m, dtype=torch.int32, device=dev)
-    bonus[rem_order] = (torch.arange(m, device=dev) < short).to(torch.int32)
-    quota = base + bonus
+    by_count = torch.argsort(-counts, dim=-1, stable=True)
+    rem_order = by_count.gather(
+        -1, torch.argsort(-rem.gather(-1, by_count), dim=-1, stable=True)
+    )
+    won = (torch.arange(m, device=dev) < short).to(torch.int32)
+    quota = base + torch.zeros_like(base).scatter_(-1, rem_order, won)
 
-    # Within-column rank: keep iff rank < quota[column]. With prefer_keep,
-    # sort by (column, not-preferred) so preferred objects take low ranks.
+    # Within-column rank: keep iff rank < quota[cell]. With prefer_keep,
+    # sort by (cell, not-preferred) so preferred objects take low ranks.
+    flat_cell = cell.reshape(-1)
     if prefer_keep is None:
-        order, sorted_idx, rank = rank_within_group(idx)
+        order, sorted_cell, rank = rank_within_group(flat_cell)
     else:
-        composite = idx.long() * 2 + (1 - prefer_keep.long())
-        order, sorted_idx, rank = rank_within_group(composite, idx)
-    keep = rank < quota[sorted_idx.long()]
+        composite = flat_cell * 2 + (1 - prefer_keep.reshape(-1).long())
+        order, sorted_cell, rank = rank_within_group(composite, flat_cell)
+    keep = (rank < quota.reshape(-1)[sorted_cell]).view(n_rows, n)
 
-    # Excess objects fill the under-quota columns in cumulative order.
+    # Excess objects fill the row's under-quota columns in cumulative
+    # order (the sort keeps rows contiguous, n objects each).
     deficit = (quota - counts).clamp_min(0)
-    bounds = torch.cumsum(deficit, dim=0, dtype=torch.int64)
-    disp_rank = torch.cumsum((~keep).to(torch.int64), dim=0) - 1
+    bounds = torch.cumsum(deficit, dim=-1, dtype=torch.int64)
+    disp_rank = torch.cumsum((~keep).to(torch.int64), dim=-1) - 1
     refill = torch.searchsorted(bounds, disp_rank, right=True).clamp(0, m - 1)
-    col_sorted = torch.where(keep, sorted_idx, refill.to(idx.dtype))
-    out = torch.zeros_like(idx)
-    out[order] = col_sorted
-    return out
+    col_sorted = torch.where(keep, sorted_cell.view(n_rows, n) % m, refill)
+    out = torch.empty_like(idx2).view(-1)
+    out[order] = col_sorted.reshape(-1).to(idx.dtype)
+    return out.view(idx.shape)
 
 
 def route_sentinel_spill(
@@ -228,11 +249,12 @@ def route_sentinel_spill(
 ) -> torch.Tensor:
     """Reseat real rows that quota repair left on the padding sentinel.
 
-    Any real row at ``idx >= sentinel`` moves to the highest-capacity
-    column; padding rows keep the sentinel for the caller to drop.
+    Any real row at ``idx >= sentinel`` moves to its problem's
+    highest-capacity column (``capacity`` is (..., m) beside ``idx``'s
+    (..., n)); padding rows keep the sentinel for the caller to drop.
     """
     spill = is_real & (idx >= sentinel)
-    fallback = torch.argmax(capacity).to(idx.dtype)
+    fallback = torch.argmax(capacity, dim=-1, keepdim=True).to(idx.dtype)
     return torch.where(spill, fallback, idx)
 
 

@@ -8,6 +8,7 @@ scenario's own assertions (the JAX tests' contracts) run on both.
 """
 
 import asyncio
+import zlib
 
 import numpy as np
 import pytest
@@ -17,6 +18,7 @@ torch = pytest.importorskip("torch")
 from rio_tpu import ObjectId as JaxObjectId  # noqa: E402
 from rio_tpu import ObjectPlacementItem as JaxItem  # noqa: E402
 from rio_tpu.cluster.storage import Member as RioMember  # noqa: E402
+from rio_tpu.object_placement import jax_placement as jp  # noqa: E402
 
 from rio_tpu_torch.object_placement import torch_placement as tp  # noqa: E402
 from rio_tpu_torch.object_placement.torch_placement import (  # noqa: E402
@@ -33,6 +35,7 @@ from .torch_placement_parity import (  # noqa: E402
     run_both,
     seats,
     snap,
+    snap_hier,
     undisplaced_moves,
 )
 
@@ -451,45 +454,82 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
         TorchObjectPlacement()
 
 
-# ---------------------------------------------- NotImplementedError gates
+# ------------------------- options of later slices, and those now ported
+
+
+def _key_features(keys):
+    """A deterministic (n, 16) feature hook, the same for both providers."""
+    return np.stack([
+        np.random.default_rng(zlib.crc32(k.encode())).normal(size=16).astype(np.float32)
+        for k in keys
+    ]) if keys else np.zeros((0, 16), np.float32)
+
+
+async def _option_scenario(api, kw):
+    p = api.make(node_axis_size=16, **kw)
+    p.sync_members([f"10.33.0.{i}:70" for i in range(16)])
+    await p.assign_batch([api.ObjectId("Opt", str(i)) for i in range(320)])
+    await p.rebalance(delta=False)
+    assert p.stats.mode == "hierarchical", p.stats.mode
+    return [snap_hier(p)]
 
 
 @pytest.mark.parametrize(
     "kw,item",
     [
-        ({"mode": "hierarchical"}, "A.9"),
-        ({"obj_features": lambda keys: None}, "A.7"),
-        ({"node_features": lambda addrs: None}, "A.7"),
-        ({"affinity_tracker": object()}, "A.7"),
-        ({"mesh": object()}, "A.11"),
-        ({"affinity_weight": 0.5}, "A.8"),
+        (lambda api: {"mode": "hierarchical"}, None),
+        (lambda api: {"obj_features": _key_features}, None),
+        (lambda api: {"node_features": _key_features}, None),
+        (lambda api: {"affinity_tracker": api.Tracker()}, None),
+        (lambda api: {"mesh": object()}, "A.11"),
+        (lambda api: {"affinity_weight": 0.5}, "A.8"),
     ],
     ids=["hierarchical", "obj_features", "node_features", "affinity_tracker", "mesh", "affinity_weight"],
 )
 def test_later_slice_options_raise(kw, item):
+    """A mesh (A.11) and the affinity refine (A.8) still raise, naming their
+    ROADMAP item. The hierarchical mode, feature hooks and a tracker (A.7,
+    A.9) now run: a full solve in mode "hierarchical" matching JAX."""
+    if item is None:
+        run_both(lambda api: _option_scenario(api, kw(api)))
+        return
     with pytest.raises(NotImplementedError, match=rf"ROADMAP {item}\b"):
-        TORCH_API.make(**kw)
+        TORCH_API.make(**kw(TORCH_API))
 
 
-async def test_rebalance_mode_hierarchical_raises():
-    p = _provider(TORCH_API)
-    await p.assign_batch([TORCH_API.ObjectId("T", str(i)) for i in range(10)])
-    with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
+def test_rebalance_mode_hierarchical_raises():
+    """``rebalance(mode="hierarchical")`` on a flat-mode provider now runs
+    the two-level solve over hashed-identity features, as JAX's does."""
+
+    async def scenario(api):
+        p = _provider(api)
+        await p.assign_batch([api.ObjectId("T", str(i)) for i in range(200)])
         await p.rebalance(mode="hierarchical")
+        assert p.stats.mode == "hierarchical" and p.stats.chunks == 1
+        return [snap_hier(p)]
+
+    run_both(scenario)
 
 
-async def test_flat_rebalance_above_the_row_bound_raises(monkeypatch):
-    """The JAX provider routes it to its hierarchical solve; the port must
-    not run another path, and leaves the directory as it was."""
-    monkeypatch.setattr(tp, "_FLAT_REBALANCE_MAX_ROWS", 256)
-    p = TORCH_API.make(mode="sinkhorn", n_iters=10)
-    p.sync_members([f"10.32.0.{i}:70" for i in range(5)])
-    ids = [TORCH_API.ObjectId("Big", str(i)) for i in range(700)]  # bucket 1024
-    await p.assign_batch(ids)
-    before = seats(p)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
+def test_flat_rebalance_above_the_row_bound_raises(monkeypatch):
+    """Above the row bound both providers route a flat rebalance through
+    the hierarchical solve ("sinkhorn+hier_at_scale"); below it, the
+    collapsed solve runs."""
+    for mod in (jp, tp):
+        monkeypatch.setattr(mod, "_FLAT_REBALANCE_MAX_ROWS", 256)
+
+    async def scenario(api):
+        p = api.make(mode="sinkhorn", n_iters=10)
+        p.sync_members([f"10.32.0.{i}:70" for i in range(5)])
+        await p.assign_batch([api.ObjectId("Big", str(i)) for i in range(700)])  # bucket 1024
         await p.rebalance()
-    assert seats(p) == before and p.stats.mode == "none"
-    monkeypatch.setattr(tp, "_FLAT_REBALANCE_MAX_ROWS", 1 << 20)
-    await p.rebalance(delta=False)
-    assert p.stats.mode == "sinkhorn+collapsed"
+        assert p.stats.mode == "sinkhorn+hier_at_scale"
+        assert (p.stats.chunks, p.stats.devices) == (1, 1)
+        rec = [snap_hier(p)]
+        api.module._FLAT_REBALANCE_MAX_ROWS = 1 << 20
+        await p.rebalance(delta=False)
+        assert p.stats.mode == "sinkhorn+collapsed"
+        api.module._FLAT_REBALANCE_MAX_ROWS = 256
+        return rec + [snap_hier(p)]
+
+    run_both(scenario)

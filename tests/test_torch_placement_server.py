@@ -103,3 +103,50 @@ def test_daemon_reseats_a_dead_nodes_objects_on_the_torch_provider():
             },
         )
     )
+
+
+def test_server_auto_wires_the_ports_affinity_tracker():
+    """An unchanged Server wires ``AffinityTracker.observe`` of the port's
+    provider into its dispatch path: after traffic the tracker holds every
+    served key, and a rebalance of the provider runs in mode hierarchical
+    (``auto`` with a tracker)."""
+    from rio_tpu_torch.object_placement import AffinityTracker
+
+    tracker = AffinityTracker()
+    placement = TorchObjectPlacement(affinity_tracker=tracker, device="cpu")
+    state = LocalState()
+
+    def make_app_data() -> AppData:
+        ad = AppData()
+        ad.set(state, as_type=StateProvider)
+        return ad
+
+    async def body(cluster: Cluster):
+        client = cluster.client()
+        try:
+            for _ in range(3):
+                for i in range(24):
+                    await client.send(SoakCounter, f"t{i}", Add(n=1), returns=Total)
+            keys = {f"{TYPE}.t{i}" for i in range(24)}
+            assert keys <= set(tracker._obj)
+            assert placement.count() == 24
+            await placement.rebalance(delta=False)
+            assert placement.stats.mode == "hierarchical"
+            assert placement.stats.chunks == 1 and placement.stats.devices == 1
+            assert placement.count() == 24
+            for i in range(24):
+                out = await client.send(SoakCounter, f"t{i}", Get(), returns=Total)
+                assert out.value == 3
+        finally:
+            client.close()
+
+    asyncio.run(
+        run_integration_test(
+            body,
+            registry_builder=build_soak_registry,
+            num_servers=2,
+            placement=placement,
+            timeout=60.0,
+            app_data_builder=make_app_data,
+        )
+    )

@@ -87,7 +87,43 @@ Phases, each printing one JSON line:
      (``sinkhorn+hier_at_scale``, 32 chunks, 1 device) with dead nodes empty and live
      loads within 10% of fair; undisplaced moves printed.
 
-Then ``hier_times``, the ``kernels`` line and, last, ``{"ok": true, "device": {...}}``. Any failed
+   Then ``hier_times``.
+14. the ``affinity`` group: ``TorchObjectPlacement(affinity_weight=2.0)`` (host factor 0.5,
+   slack 1.25, 3 passes) on 1,024 nodes, 128 hosts x 8 workers (one IP, eight ports),
+   with a ``merge_edges`` graph of 524,288 rows (half disjoint pairs, half 16-leaf stars,
+   Zipf(1.1) byte rates over the rows' ranks, 10 calls/s); each phase prints wall ms,
+   ``stats.mode``, ``solve_ms``, ``apply_ms``, moved, the refine's host preparation and
+   per-pass ms (its tracing spans), the pass history, peak device memory and both kernels'
+   launch counts (0: the refine runs the plain ``sinkhorn``, as the reference does):
+
+   - ``affinity_refine``: 1,048,576 objects, ``rebalance(delta=False)`` in mode
+     ``sinkhorn+collapsed+affinity``; accepted passes with non-increasing cut and total,
+     one past pass 0; 0 < moved <= 4,096; every node at or under its slack cap; the
+     weight share of the refined subset's edges on one worker and on one host, before
+     and after (the same-worker share rises);
+   - ``affinity_repeat``: a second provider given the first one's directory from before
+     the refine gives equal seats and an equal history (no float atomics on the path);
+   - ``affinity_cpu_vs_card``: 65,536 objects and 32,768 edge rows on a CPU provider and a
+     card provider: equal pass and accepted flags, cut within 1e-5, seats agreeing >= 99%;
+   - ``affinity_hier``: the same directory and graph in a provider built with an
+     ``AffinityTracker`` (``auto`` resolves to hierarchical): mode
+     ``hierarchical+affinity``, the history as above. Then ``affinity_times``.
+15. the ``persistent`` group: ``PersistentTorchObjectPlacement`` over the port's
+   ``LocalObjectPlacement`` at 1,048,576 objects on 1,024 nodes, its background flusher
+   held off, every row written by a timed ``flush()``:
+
+   - ``persistent_assign``: ``assign_batch``, then a flush of exactly 1,048,576 rows that
+     leaves the backing equal to the directory;
+   - ``persistent_churn``: a settling full rebalance (no move, no row), 30 nodes killed, a
+     ``sinkhorn+delta`` rebalance moving exactly their 30,720 objects, a flush of exactly
+     those rows, no backing row on a dead node;
+   - ``persistent_restore``: a fresh provider over the same backing: ``prepare()`` restores
+     the first provider's directory row for row, recounts loads, starts every restored node
+     dead and marks nothing dirty; ``sync_members`` with the survivors and a full
+     rebalance on the card (live nodes at integer fair quotas), whose moves are flushed.
+     Then ``persistent_times``.
+
+Then the ``kernels`` line and, last, ``{"ok": true, "device": {...}}``. Any failed
 check raises, so the script exits non-zero and prints no result. Without a CUDA
 device it exits 1 at once.
 
@@ -132,6 +168,18 @@ HIER_TRACKER_PROBE = 64  # warmed (and as many cold) keys replayed on a CPU trac
 TOL_HIER_FEATURES = 1e-6  # the card's hashed features against the CPU path's
 HIER_LOAD_SLACK = 0.10  # live loads within 10% of fair (tests/test_hierarchical.py:226)
 HIER_ROW_AGREEMENT = 0.99  # one chunk on the card against the same chunk on the CPU
+# The affinity group: 1,048,576 objects on 128 hosts x 8 workers (one IP, eight
+# ports), 524,288 edge rows (1,024 servers x the edge sampler's top_k of 512),
+# affinity_weight 2.0 (affinity_live.py's default), host factor, slack and
+# passes at the provider's defaults.
+AFF_OBJ, AFF_HOSTS, AFF_WORKERS, AFF_ROWS, AFF_WEIGHT = 1 << 20, 128, 8, 524_288, 2.0
+AFF_STAR_LEAVES, AFF_ZIPF, AFF_TOP_BPS, AFF_CALLS = 16, 1.1, 1e6, 10.0
+AFF_CMP_OBJ, AFF_CMP_ROWS = 65_536, 32_768  # the CPU provider against the card's
+AFF_SEAT_AGREEMENT = 0.99
+TOL_AFF_CUT = 1e-5
+# The persistent group: 1,048,576 objects over LocalObjectPlacement, 30 nodes killed.
+PERS_OBJ, PERS_KILL = 1 << 20, 30
+PERS_FLUSH_INTERVAL = 3600.0
 
 
 def emit(phase: str, **fields) -> None:
@@ -241,6 +289,16 @@ async def timed_call(coro_fn, what: str = "the directory"):
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
     return result, ms, _read_launches(what)
+
+
+async def provider_call(coro_fn, what: str):
+    """:func:`timed_call` plus the peak device memory of the call."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    result, ms, launches = await timed_call(coro_fn, what)
+    return result, ms, launches, torch.cuda.max_memory_allocated()
 
 
 async def directory_phases(dev, card: dict) -> dict:
@@ -459,12 +517,6 @@ async def hier_phases(dev, card: dict) -> dict:
               f"{what}: live loads {lo}..{hi} against fair {fair:.1f}")
         return [lo, hi]
 
-    async def provider_call(coro_fn, what: str):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        result, ms, launches = await timed_call(coro_fn, what)
-        return result, ms, launches, torch.cuda.max_memory_allocated()
-
     def stats_fields(p) -> dict:
         s = p.stats
         return {"mode": s.mode, "solve_ms": s.solve_ms, "apply_ms": s.apply_ms,
@@ -670,6 +722,337 @@ async def hier_phases(dev, card: dict) -> dict:
                scale_kill_ms=steps["kill"]["wall_ms"], scale_kill_solve_ms=steps["kill"]["solve_ms"])
     emit("hier_at_scale", **card, n=HIER_OBJ, m=DIR_NODES, killed=HIER_DEAD,
          assign={"wall_ms": assign_ms, "peak_bytes": peak, "launches": launches}, **steps)
+    return out
+
+
+def affinity_edge_rows(n_obj: int, n_rows: int, seed: int) -> list[list]:
+    """``merge_edges`` rows over objects ``Aff.<i>`` (i < n_obj): half disjoint
+    producer -> consumer pairs, half ``AFF_STAR_LEAVES``-leaf stars, on distinct
+    objects drawn from ``seed``. Byte rates follow Zipf(``AFF_ZIPF``) over the
+    rows' ranks (the row of rank r sends ``AFF_TOP_BPS / r**AFF_ZIPF`` B/s), in a
+    random order; every row makes ``AFF_CALLS`` calls a second."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n_pairs = n_rows // 2
+    n_stars = (n_rows - n_pairs) // AFF_STAR_LEAVES
+    n_star_rows = n_stars * AFF_STAR_LEAVES
+    need = 2 * n_pairs + n_stars * (AFF_STAR_LEAVES + 1)
+    check(n_pairs + n_star_rows == n_rows and need <= n_obj, f"{n_rows} edge rows over {n_obj} objects")
+    obj = rng.permutation(n_obj)[:need]
+    hubs = obj[2 * n_pairs : 2 * n_pairs + n_stars]
+    src = np.concatenate([obj[0 : 2 * n_pairs : 2], np.repeat(hubs, AFF_STAR_LEAVES)])
+    dst = np.concatenate([obj[1 : 2 * n_pairs : 2], obj[2 * n_pairs + n_stars :]])
+    bps = AFF_TOP_BPS / (rng.permutation(n_rows) + 1.0) ** AFF_ZIPF
+    return [[f"Aff.{a}", f"Aff.{b}", float(x), AFF_CALLS, 0.0]
+            for a, b, x in zip(src.tolist(), dst.tolist(), bps.tolist())]
+
+
+def solve_fields(p) -> dict:
+    """The last solve's mode, times and counts."""
+    s = p.stats
+    return {"mode": s.mode, "solve_ms": s.solve_ms, "apply_ms": s.apply_ms,
+            "moved": s.moved, "displaced": s.displaced}
+
+
+class RefineTimer:
+    """Collects the refine's spans through a sink on the port's tracing,
+    registered while the block runs: ``affinity_refine_prep`` (host
+    preparation), ``affinity_refine_index`` inside it (the key index over the
+    directory and the edge lookup) and ``affinity_refine_pass`` (each pass's
+    device work, ending in the pull of its seats)."""
+
+    def __enter__(self):
+        from rio_tpu_torch import tracing
+
+        self.prep_ms: list[float] = []
+        self.index_ms: list[float] = []
+        self.pass_ms: list[float] = []
+        names = {"affinity_refine_prep": self.prep_ms, "affinity_refine_index": self.index_ms,
+                 "affinity_refine_pass": self.pass_ms}
+
+        def sink(s) -> None:
+            if s.name in names:
+                names[s.name].append(s.duration * 1e3)
+
+        tracing.add_sink(sink)
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        from rio_tpu_torch import tracing
+
+        tracing.clear_sinks()
+        return False
+
+    def fields(self) -> dict:
+        return {"refine_prep_ms": sum(self.prep_ms), "refine_index_ms": sum(self.index_ms),
+                "refine_pass_ms": self.pass_ms,
+                "refine_ms": sum(self.prep_ms) + sum(self.pass_ms)}
+
+
+def check_history(p, what: str) -> list:
+    """The refine ran and changed seats: accepted passes with non-increasing
+    ``cut`` and ``total`` (the acceptance test's 1e-9), one of them past pass 0."""
+    hist = [dict(h) for h in p._affinity_history]
+    accepted = [h for h in hist if h["accepted"]]
+    for prev, cur in zip(accepted, accepted[1:]):
+        check(cur["cut"] <= prev["cut"] + 1e-9 and cur["total"] <= prev["total"] + 1e-9,
+              f"{what}: an accepted pass raised cut or total: {hist}")
+    check(any(h["pass"] > 0 for h in accepted), f"{what}: no pass past 0 accepted: {hist}")
+    return hist
+
+
+async def affinity_phases(dev, card: dict) -> dict:
+    """The ``affinity`` group (phase 14): returns the times it printed."""
+    import numpy as np
+    import torch
+
+    from rio_tpu_torch.object_placement import AffinityTracker, TorchObjectPlacement
+    from rio_tpu_torch.object_placement import torch_placement as tp
+    from rio_tpu_torch.registry import ObjectId
+
+    addrs = [f"10.{80 + h // 256}.{h % 256}.1:{5000 + w}"
+             for h in range(AFF_HOSTS) for w in range(AFF_WORKERS)]
+    m = len(addrs)
+    out: dict = {}
+
+    def provider(device, **kw) -> TorchObjectPlacement:
+        p = TorchObjectPlacement(eps=EPS, n_iters=N_ITERS, move_cost=DIR_MOVE_COST,
+                                 node_axis_size=m, affinity_weight=AFF_WEIGHT, device=device, **kw)
+        p.sync_members([_Member(a, True) for a in addrs])
+        return p
+
+    def seat_array(p) -> np.ndarray:
+        return np.fromiter(p._placements.values(), np.int64, count=p.count())
+
+    async def seated(device, n_obj, rows, **kw):
+        """A provider with ``n_obj`` objects assigned and the graph installed;
+        the assign's wall ms and the installed edge count."""
+        p = provider(device, **kw)
+        t0 = time.perf_counter()
+        await p.assign_batch([ObjectId("Aff", str(i)) for i in range(n_obj)])
+        assign_ms = (time.perf_counter() - t0) * 1e3
+        edges = p.set_edge_graph(rows)
+        check(edges > 0, "no edge installed")
+        return p, assign_ms, edges
+
+    def copied(device, keys, seats, **kw) -> TorchObjectPlacement:
+        """A provider holding ``keys`` on ``seats`` (another provider's
+        directory, by node index) with the graph installed: the same state
+        without a second ``assign_batch``."""
+        q = provider(device, **kw)
+        q._apply_chunk(keys, seats)
+        check(q.set_edge_graph(rows) == edges, "the copy installed another graph")
+        return q
+
+    async def refine(p, what: str) -> tuple:
+        with RefineTimer() as timer:
+            moved, ms, launches, peak = await provider_call(
+                lambda: p.rebalance(delta=False), what)
+        return moved, {"wall_ms": ms, **solve_fields(p), **timer.fields(),
+                       "peak_bytes": peak, "launches": launches}
+
+    # -- affinity_refine: 1,048,576 objects, 524,288 edge rows ------------------
+    t0 = time.perf_counter()
+    rows = affinity_edge_rows(AFF_OBJ, AFF_ROWS, seed=3)
+    rows_ms = (time.perf_counter() - t0) * 1e3
+    p, assign_ms, edges = await seated(dev, AFF_OBJ, rows, mode="sinkhorn")
+    keys, before = list(p._placements), seat_array(p)
+    moved, res = await refine(p, "the refined rebalance")
+    check(p.stats.mode == "sinkhorn+collapsed+affinity", f"refined solve ran {p.stats.mode}")
+    hist = check_history(p, "affinity_refine")
+    after = seat_array(p)
+    n_changed = int((before != after).sum())
+    check(0 < moved == n_changed <= tp._AFFINITY_MAX_ROWS,
+          f"moved {moved}, seats changed {n_changed}, cap {tp._AFFINITY_MAX_ROWS}")
+    counts = np.bincount(after, minlength=m)
+    slack_cap = AFF_OBJ / m * p._affinity_slack + 1.0
+    check(int(counts.max()) <= slack_cap, f"a node holds {int(counts.max())} > slack cap {slack_cap}")
+    # The refined subset (the 4,096 heaviest-degree objects, with the
+    # refine's degrees) and the weight share of its edges on one worker and
+    # on one host, before and after.
+    e_src = np.fromiter((int(a[4:]) for a, _ in p._edge_graph), np.int64, count=edges)
+    e_dst = np.fromiter((int(b[4:]) for _, b in p._edge_graph), np.int64, count=edges)
+    e_w = np.fromiter(p._edge_graph.values(), np.float32, count=edges)
+    deg = np.zeros(AFF_OBJ, np.float32)
+    np.add.at(deg, np.concatenate([e_src, e_dst]), np.concatenate([e_w, e_w]))
+    touching = np.nonzero(deg > 0.0)[0]
+    sub = touching[np.argsort(-deg[touching], kind="stable")[:tp._AFFINITY_MAX_ROWS]]
+    in_sub = np.zeros(AFF_OBJ, bool)
+    in_sub[sub] = True
+    sub_edges = in_sub[e_src] | in_sub[e_dst]
+
+    def shares(seats) -> dict:
+        w = e_w[sub_edges]
+        a, b = seats[e_src[sub_edges]], seats[e_dst[sub_edges]]
+        total = float(w.sum())
+        return {"same_worker": float(w[a == b].sum()) / total,
+                "same_host": float(w[a // AFF_WORKERS == b // AFF_WORKERS].sum()) / total}
+
+    share_before, share_after = shares(before), shares(after)
+    check(share_after["same_worker"] > share_before["same_worker"],
+          f"the subset's same-worker share fell: {share_before} -> {share_after}")
+    out.update(aff_rows_ms=rows_ms, aff_assign_ms=assign_ms, aff_refine_wall_ms=res["wall_ms"],
+               aff_refine_solve_ms=res["solve_ms"], aff_refine_prep_ms=res["refine_prep_ms"],
+               aff_refine_pass_ms=res["refine_pass_ms"])
+    emit("affinity_refine", **card, n=AFF_OBJ, m=m, hosts=AFF_HOSTS, workers=AFF_WORKERS,
+         edge_rows=AFF_ROWS, edges=edges, subset=int(sub.size), subset_edges=int(sub_edges.sum()),
+         rows_ms=rows_ms, assign_ms=assign_ms, **res, history=hist, max_node=int(counts.max()),
+         slack_cap=float(slack_cap), subset_share_before=share_before,
+         subset_share_after=share_after)
+
+    # -- affinity_repeat: the same solve from the same state ---------------------
+    p2 = copied(dev, keys, before, mode="sinkhorn")
+    _, res2 = await refine(p2, "the repeated refine")
+    equal_seats = bool(np.array_equal(seat_array(p2), after))
+    check(equal_seats and p2._affinity_history == p._affinity_history and res2["mode"] == res["mode"],
+          "the repeated refine differs from the first")
+    out.update(aff_repeat_wall_ms=res2["wall_ms"], aff_repeat_solve_ms=res2["solve_ms"])
+    emit("affinity_repeat", **card, n=AFF_OBJ, m=m, **res2, equal_seats=equal_seats,
+         equal_history=True)
+    del p, p2, after, e_src, e_dst, e_w, deg
+
+    # -- affinity_cpu_vs_card: 65,536 objects, 32,768 edge rows ------------------
+    cmp_rows = affinity_edge_rows(AFF_CMP_OBJ, AFF_CMP_ROWS, seed=4)
+    side = {}
+    for name, device in (("cpu", torch.device("cpu")), ("card", dev)):
+        q, _, _ = await seated(device, AFF_CMP_OBJ, cmp_rows, mode="sinkhorn")
+        _, res_q = await refine(q, f"the refine on the {name}")
+        check(q.stats.mode == "sinkhorn+collapsed+affinity", f"{name}: refined solve ran {q.stats.mode}")
+        side[name] = (seat_array(q), [dict(h) for h in q._affinity_history], res_q)
+    (seats_cpu, hist_cpu, res_cpu), (seats_card, hist_card, res_card) = side["cpu"], side["card"]
+    check([(h["pass"], h["accepted"]) for h in hist_cpu] == [(h["pass"], h["accepted"]) for h in hist_card],
+          f"accepted flags differ: {hist_cpu} vs {hist_card}")
+    cut_err = max(abs(a["cut"] - b["cut"]) for a, b in zip(hist_cpu, hist_card))
+    check(cut_err <= TOL_AFF_CUT, f"cut differs by {cut_err}")
+    agree = float(np.mean(seats_cpu == seats_card))
+    check(agree >= AFF_SEAT_AGREEMENT, f"seats agree on {agree}")
+    out.update(aff_cmp_cpu_solve_ms=res_cpu["solve_ms"], aff_cmp_card_solve_ms=res_card["solve_ms"])
+    emit("affinity_cpu_vs_card", **card, n=AFF_CMP_OBJ, m=m, edge_rows=AFF_CMP_ROWS,
+         seat_agreement=agree, cut_max_abs_err=cut_err, tol=TOL_AFF_CUT, history=hist_card,
+         on_cpu={k: res_cpu[k] for k in ("wall_ms", "solve_ms", "refine_ms", "moved")},
+         on_card={k: res_card[k] for k in ("wall_ms", "solve_ms", "refine_ms", "moved", "launches")})
+    del side, cmp_rows, q
+
+    # -- affinity_hier: the same graph after the hierarchical solve --------------
+    p = copied(dev, keys, before, affinity_tracker=AffinityTracker())
+    del keys, before
+    check(p._solver_mode() == "hierarchical", f"auto with a tracker is {p._solver_mode()}")
+    _, res = await refine(p, "the hierarchical refine")
+    check(p.stats.mode == "hierarchical+affinity", f"hierarchical solve ran {p.stats.mode}")
+    hist = check_history(p, "affinity_hier")
+    out.update(aff_hier_wall_ms=res["wall_ms"], aff_hier_solve_ms=res["solve_ms"],
+               aff_hier_refine_ms=res["refine_ms"])
+    emit("affinity_hier", **card, n=AFF_OBJ, m=m, edge_rows=AFF_ROWS, **res,
+         chunks=p.stats.chunks, history=hist)
+    return out
+
+
+async def persistent_phases(dev, card: dict) -> dict:
+    """The ``persistent`` group (phase 15): returns the times it printed."""
+    import numpy as np
+
+    from rio_tpu_torch.object_placement import LocalObjectPlacement, PersistentTorchObjectPlacement
+    from rio_tpu_torch.ops import integer_fair_quotas
+    from rio_tpu_torch.registry import ObjectId
+
+    addrs = [f"10.{i // 256}.{i % 256}.3:5000" for i in range(DIR_NODES)]
+    killed = sorted(int(i) for i in np.random.default_rng(5).choice(DIR_NODES, PERS_KILL, replace=False))
+    dead = set(killed)
+    live = [_Member(a, i not in dead) for i, a in enumerate(addrs)]
+    out: dict = {}
+
+    def provider() -> PersistentTorchObjectPlacement:
+        # The background flusher never fires inside a phase: every row is
+        # written by the phase's own timed flush().
+        return PersistentTorchObjectPlacement(
+            backing, flush_interval=PERS_FLUSH_INTERVAL, mode="sinkhorn", eps=EPS,
+            n_iters=N_ITERS, move_cost=DIR_MOVE_COST, node_axis_size=DIR_NODES, device=dev)
+
+    def rows_of(p) -> dict:
+        return {k: p._node_order[i] for k, i in p._placements.items()}
+
+    async def flush(p) -> tuple[int, float]:
+        t0 = time.perf_counter()
+        n = await p.flush()
+        return n, (time.perf_counter() - t0) * 1e3
+
+    # -- persistent_assign ------------------------------------------------------
+    backing = LocalObjectPlacement()
+    p = provider()
+    p.sync_members([_Member(a, True) for a in addrs])
+    await p.prepare()
+    check(p.count() == 0, "an empty backing restored rows")
+    ids = [ObjectId("Pers", str(i)) for i in range(PERS_OBJ)]
+    _, assign_ms, launches, peak = await provider_call(lambda: p.assign_batch(ids), "assign_batch")
+    written, flush_ms = await flush(p)
+    check(written == PERS_OBJ == backing.count(), f"flushed {written}, backing holds {backing.count()}")
+    check(backing._placements == rows_of(p), "the backing differs from the directory")
+    out.update(pers_assign_ms=assign_ms, pers_flush_ms=flush_ms,
+               pers_flush_us_per_row=flush_ms * 1e3 / written)
+    emit("persistent_assign", **card, n=PERS_OBJ, m=DIR_NODES, wall_ms=assign_ms, rows=written,
+         flush_ms=flush_ms, flush_us_per_row=flush_ms * 1e3 / written, peak_bytes=peak,
+         launches=launches)
+    del ids
+
+    # -- persistent_churn: 30 nodes die, the delta path, an exact flush ----------
+    moved, settle_ms, _, _ = await provider_call(lambda: p.rebalance(delta=False), "the settle")
+    settled, _ = await flush(p)
+    check(moved == settled == 0, f"the settle moved {moved}, flushed {settled}")
+    before = rows_of(p)
+    p.sync_members(live)
+    moved, ms, launches, peak = await provider_call(lambda: p.rebalance(), "the churn rebalance")
+    check(p.stats.mode == "sinkhorn+delta", f"churn solve ran {p.stats.mode}")
+    after = rows_of(p)
+    changed = {k for k, a in after.items() if before[k] != a}
+    check(moved == len(changed) == p.stats.displaced == PERS_KILL * (PERS_OBJ // DIR_NODES),
+          f"moved {moved}, changed {len(changed)}, displaced {p.stats.displaced}")
+    check(set(p._dirty) == changed, "the dirty set is not the moved rows")
+    written, churn_flush_ms = await flush(p)
+    check(written == moved, f"flushed {written} rows for {moved} moves")
+    check(backing._placements == after, "the backing differs from the directory after the churn")
+    dead_addrs = {addrs[i] for i in killed}
+    check(not dead_addrs & set(backing._placements.values()), "a backing row names a dead node")
+    out.update(pers_churn_ms=ms, pers_churn_solve_ms=p.stats.solve_ms, pers_churn_flush_ms=churn_flush_ms)
+    emit("persistent_churn", **card, n=PERS_OBJ, m=DIR_NODES, killed=PERS_KILL, wall_ms=ms,
+         **solve_fields(p), settle_ms=settle_ms, rows=written, flush_ms=churn_flush_ms,
+         flush_us_per_row=churn_flush_ms * 1e3 / written, peak_bytes=peak, launches=launches)
+    await p.aclose()
+
+    # -- persistent_restore: a fresh provider over the same backing --------------
+    q = provider()
+    _, restore_ms, launches, _ = await provider_call(q.prepare, "the restore")
+    restored = rows_of(q)
+    check(restored == after, "the restored directory differs from the first provider's")
+    per_node = np.bincount(np.fromiter(q._placements.values(), np.int64, count=q.count()),
+                           minlength=len(q._node_order))
+    check(all(s.load == per_node[s.index] for s in q._nodes.values()), "loads were not recounted")
+    nodes_restored = len(q._nodes)
+    check(nodes_restored == DIR_NODES - PERS_KILL and not any(s.alive for s in q._nodes.values()),
+          "restored nodes are not all dead before registration")
+    check(q._dirty == {}, "the restore marked rows dirty")
+    q.sync_members(live)
+    moved, ms, full_launches, peak = await provider_call(
+        lambda: q.rebalance(delta=False), "the restored rebalance")
+    check(q.stats.mode == "sinkhorn+collapsed", f"restored full solve ran {q.stats.mode}")
+    counts = np.bincount(np.fromiter(q._placements.values(), np.int64, count=q.count()),
+                         minlength=len(q._node_order))
+    live_idx = [q._nodes[a].index for a in addrs if a not in dead_addrs]
+    dead_idx = [q._nodes[a].index for a in dead_addrs]
+    quota = integer_fair_quotas(np.ones(len(live_idx)), PERS_OBJ)
+    check(int(counts[dead_idx].sum()) == 0, "objects on dead nodes after the restore")
+    check(bool(np.array_equal(np.sort(counts[live_idx]), np.sort(quota))),
+          "restored rebalance: live nodes off their integer fair quotas")
+    written, final_flush_ms = await flush(q)
+    check(written == moved, f"flushed {written} rows for {moved} moves")
+    check(backing._placements == rows_of(q), "the backing differs after the restored rebalance")
+    await q.aclose()
+    out.update(pers_restore_ms=restore_ms, pers_restore_us_per_row=restore_ms * 1e3 / len(restored),
+               pers_restored_rebalance_ms=ms, pers_restored_solve_ms=q.stats.solve_ms)
+    emit("persistent_restore", **card, n=len(restored), m=DIR_NODES, restore_ms=restore_ms,
+         restore_us_per_row=restore_ms * 1e3 / len(restored), restore_launches=launches,
+         nodes_restored=nodes_restored, wall_ms=ms, **solve_fields(q), rows=written,
+         flush_ms=final_flush_ms, peak_bytes=peak, launches=full_launches)
     return out
 
 
@@ -1047,6 +1430,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     hier = asyncio.run(hier_phases(dev, card))
     emit("hier_times", **card, **hier)
+
+    # -- 14. the affinity refine ------------------------------------------------
+    torch.cuda.empty_cache()
+    affinity = asyncio.run(affinity_phases(dev, card))
+    emit("affinity_times", **card, **affinity)
+
+    # -- 15. the persistent provider -------------------------------------------
+    torch.cuda.empty_cache()
+    persistent = asyncio.run(persistent_phases(dev, card))
+    emit("persistent_times", **card, **persistent)
 
     print(json.dumps({"kernels": [{
         "name": "fused_scaling_iteration",

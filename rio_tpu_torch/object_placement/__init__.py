@@ -1,12 +1,15 @@
 """Object placement: the cluster-wide actor directory, for the port.
 
 Copies of the trait surface of ``rio_tpu/object_placement/__init__.py``:
-:class:`ObjectPlacementItem`, :func:`sanitize_standby_row` and the
-:class:`ObjectPlacement` ABC, a CRUD mapping ``ObjectId -> server_address``
-consulted on every request. The port's provider is
+:class:`ObjectPlacementItem`, :func:`sanitize_standby_row`, the
+:class:`ObjectPlacement` ABC (a CRUD mapping ``ObjectId -> server_address``
+consulted on every request) and :class:`LocalObjectPlacement`, the
+in-memory store. The port's provider is
 :class:`~rio_tpu_torch.object_placement.torch_placement.TorchObjectPlacement`,
-and :class:`~rio_tpu_torch.object_placement.torch_placement.AffinityTracker`
-feeds its hierarchical mode; both are exported here.
+:class:`~rio_tpu_torch.object_placement.torch_placement.AffinityTracker`
+feeds its hierarchical mode, and
+:class:`~rio_tpu_torch.object_placement.persistent.PersistentTorchObjectPlacement`
+adds write-behind durability on a backing store; all are exported here.
 Its ``update`` reads ``item.object_id`` and ``item.server_address`` by
 attribute, so ``rio_tpu``'s items serve as well as these.
 """
@@ -20,9 +23,11 @@ from ..registry import ObjectId
 
 __all__ = [
     "AffinityTracker",
+    "LocalObjectPlacement",
     "ObjectId",
     "ObjectPlacementItem",
     "ObjectPlacement",
+    "PersistentTorchObjectPlacement",
     "TorchObjectPlacement",
     "sanitize_standby_row",
 ]
@@ -135,5 +140,69 @@ class ObjectPlacement(abc.ABC):
         raise NotImplementedError(f"{type(self).__name__} stores no standbys")
 
 
-# Last: the provider module imports the trait above from this package.
+class LocalObjectPlacement(ObjectPlacement):
+    """In-memory directory; clones alias the same dict (the keying scheme
+    ``"{type}.{id}"`` of every backend)."""
+
+    def __init__(self) -> None:
+        self._placements: dict[str, str] = {}
+        self._standbys: dict[str, tuple[list[str], int]] = {}
+
+    async def update(self, item: ObjectPlacementItem) -> None:
+        key = str(item.object_id)
+        if item.server_address is None:
+            self._placements.pop(key, None)
+        else:
+            self._placements[key] = item.server_address
+
+    async def lookup(self, object_id: ObjectId) -> str | None:
+        return self._placements.get(str(object_id))
+
+    async def clean_server(self, address: str) -> None:
+        stale = [k for k, v in self._placements.items() if v == address]
+        for k in stale:
+            del self._placements[k]
+
+    async def remove(self, object_id: ObjectId) -> None:
+        self._placements.pop(str(object_id), None)
+        self._standbys.pop(str(object_id), None)
+
+    async def set_standbys(self, object_id: ObjectId, addresses: list[str]) -> int:
+        key = str(object_id)
+        _, epoch = self._standbys.get(key, ([], 0))
+        if addresses:
+            self._standbys[key] = (list(addresses), epoch)
+        elif epoch:
+            self._standbys[key] = ([], epoch)
+        else:
+            self._standbys.pop(key, None)
+        return epoch
+
+    async def standbys(self, object_id: ObjectId) -> tuple[list[str], int]:
+        held, epoch = self._standbys.get(str(object_id), ([], 0))
+        return sanitize_standby_row(held, epoch)
+
+    async def promote_standby(
+        self, object_id: ObjectId, address: str, expected_epoch: int
+    ) -> int | None:
+        key = str(object_id)
+        held, epoch = self._standbys.get(key, ([], 0))
+        if epoch != expected_epoch or address not in held:
+            return None
+        self._standbys[key] = ([a for a in held if a != address], epoch + 1)
+        self._placements[key] = address
+        return epoch + 1
+
+    async def items(self) -> list[ObjectPlacementItem]:
+        return [
+            ObjectPlacementItem(ObjectId(*k.split(".", 1)), v)
+            for k, v in self._placements.items()
+        ]
+
+    def count(self) -> int:
+        return len(self._placements)
+
+
+# Last: the provider modules import the trait above from this package.
 from .torch_placement import AffinityTracker, TorchObjectPlacement  # noqa: E402
+from .persistent import PersistentTorchObjectPlacement  # noqa: E402

@@ -22,6 +22,9 @@ and ``PlacementDaemon`` run on it. It keeps:
   hierarchical solve's object features;
 - **incremental (delta) rebalances** that re-solve only the displaced
   objects against residual quotas, warm-started from the last plan;
+- the **affinity refine**: with ``affinity_weight > 0`` every full solve is
+  followed by linearized OT passes over the communication graph that
+  ``set_edge_graph`` installs (``"<mode>+affinity"``);
 - **epoch versioning**: every mutation bumps an epoch, and a solve whose
   snapshot epoch moved underneath it is discarded.
 
@@ -30,8 +33,8 @@ device result comes back through an explicit ``.cpu()``: that pull is the
 synchronisation point, so ``solve_ms`` includes the device's time.
 
 It runs on the CUDA device unless it is built with ``device="cpu"``.
-What a later slice ports raises ``NotImplementedError`` naming its
-ROADMAP item: a ``mesh`` and ``affinity_weight > 0``.
+A ``mesh``, which a later slice ports, raises ``NotImplementedError``
+naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -95,8 +98,12 @@ _HASH_CHUNK_KEYS = 1 << 20
 
 _SOLVER_MODES = ("sinkhorn", "scaling", "greedy", "hierarchical")
 
-# What a later slice ports; each message names its ROADMAP item.
-_LATER_REFINE = "the affinity refine is not ported yet (ROADMAP A.8)"
+# Row cap of the affinity refine's subset solve (the JAX provider's): the
+# heaviest-degree edge-touching objects win the slots, so a pathological
+# graph never turns the refine into a directory-sized dense problem.
+_AFFINITY_MAX_ROWS = 4096
+
+# What a later slice ports; the message names its ROADMAP item.
 _LATER_MESH = "mesh-sharded solves are not ported yet (ROADMAP A.11: parallel/ on torch.distributed)"
 
 
@@ -473,6 +480,71 @@ def _class_refresh_device(base, counts, cap_alive, g_seed, *, mode, move_cost, e
     return g, err
 
 
+# -- affinity refine helpers ----------------------------------------------------
+
+
+def _host_ids(hosts: list[str]) -> np.ndarray:
+    """Each entry's index among the distinct hosts in order of first
+    appearance (int64): the JAX provider's
+    ``list(dict.fromkeys(hosts)).index(h)`` in one O(m) pass."""
+    first: dict[str, int] = {}
+    return np.asarray([first.setdefault(h, len(first)) for h in hosts], np.int64)
+
+
+def _attraction(
+    rows: np.ndarray, dst_seats: np.ndarray, w: np.ndarray, hfac: torch.Tensor, n_rows: int
+) -> torch.Tensor:
+    """(n_rows, m) float32 attraction on ``hfac``'s device: row ``rows[e]``
+    gains ``w[e] * hfac[dst_seats[e]]`` for every edge ``e``.
+
+    The JAX provider's ``np.add.at(attract, rows, w[:, None] *
+    hfac[dst_seats])`` without a float scatter on the device (CUDA's
+    atomics sum in a different order on every run): each edge's weight is
+    summed on the host, in edge order, into its (row, destination seat)
+    cell, at most one cell an edge; the cells are written into an
+    (n_rows, m) weight matrix, and one matrix product by ``hfac`` spreads
+    each seat's weight over the seats it credits. Two runs give the same
+    bits; against the reference the sums differ in order only, by float32
+    rounding.
+    """
+    m = hfac.shape[0]
+    cells, slot = np.unique(rows.astype(np.int64) * m + dst_seats, return_inverse=True)
+    sums = np.zeros(cells.shape, np.float32)
+    np.add.at(sums, slot, w)
+    dev = hfac.device
+    weights = torch.zeros(n_rows * m, dtype=torch.float32, device=dev)
+    weights[torch.from_numpy(cells).to(dev)] = torch.from_numpy(sums).to(dev)
+    return weights.view(n_rows, m) @ hfac
+
+
+def _truncate_movers(
+    new: torch.Tensor, old: torch.Tensor, gain: torch.Tensor, col_cap: torch.Tensor
+) -> torch.Tensor:
+    """Integer capacity enforcement of one refine pass.
+
+    Objects moving INTO column ``c`` keep their move while they rank below
+    ``floor(col_cap[c] - stayers[c])`` (stayers: objects whose seat is
+    ``c`` before and after), ranked by gain, highest first, ties by index;
+    the rest return to ``old``. The JAX provider loops over the columns
+    with ``argsort(-gain, kind="stable")``; here one stable sort by gain
+    and one by column (:func:`rank_within_group`) rank every mover at once,
+    with the same result. ``col_cap`` is float64, as the reference's.
+    """
+    moving = new != old
+    stayers = torch.bincount(old[~moving], minlength=col_cap.shape[0])
+    allowed = torch.floor(col_cap - stayers).clamp_min(0.0)
+    idx = torch.nonzero(moving).squeeze(1)
+    if idx.numel() == 0:
+        return new
+    # + 0.0 turns -0.0 into 0.0: a radix sort would order the two apart.
+    by_gain = idx[torch.argsort(-gain[idx] + 0.0, stable=True)]
+    order, cols, rank = rank_within_group(new[by_gain])
+    revert = by_gain[order][rank >= allowed[cols]]
+    out = new.clone()
+    out[revert] = old[revert]
+    return out
+
+
 # -- solver convergence telemetry helpers -------------------------------------
 
 
@@ -774,6 +846,9 @@ class TorchObjectPlacement(ObjectPlacement):
         max_delta_solves: int = 8,
         delta_audit_ratio: float = 1.05,
         affinity_weight: float = 0.0,
+        affinity_passes: int = 3,
+        affinity_host_factor: float = 0.5,
+        affinity_slack: float = 1.25,
         device: str | torch.device | None = None,
     ) -> None:
         if mode != "auto" and mode not in _SOLVER_MODES:
@@ -789,8 +864,6 @@ class TorchObjectPlacement(ObjectPlacement):
             )
         if mesh is not None:
             raise NotImplementedError(_LATER_MESH)
-        if affinity_weight > 0.0:
-            raise NotImplementedError(_LATER_REFINE)
         self.device = resolve_device(device)
         self._eps = eps
         self._n_iters = n_iters
@@ -831,9 +904,25 @@ class TorchObjectPlacement(ObjectPlacement):
         if object_costs is None and affinity_tracker is not None:
             object_costs = affinity_tracker.move_weights
         self._object_costs = object_costs
-        # (src, dst) -> normalized byte-rate weight, stored for the affinity
-        # refine of a later slice (set_edge_graph).
+        # Communication-graph refinement: after every FULL solve,
+        # `affinity_passes` alternating linearized OT passes over the
+        # edge-touching subset (_affinity_refine). Weight 0.0 disables it;
+        # the delta paths never refine. host_factor is the attraction
+        # credit for a different worker of the same host (the address up
+        # to ":port"); slack lets a refined node overfill its fair share by
+        # that factor (strictly balanced capacities block the simplest
+        # co-location), with the acceptance check guarding the balance.
+        self._affinity_weight = float(affinity_weight)
+        self._affinity_passes = max(1, int(affinity_passes))
+        self._affinity_host_factor = min(1.0, max(0.0, affinity_host_factor))
+        self._affinity_slack = max(1.0, float(affinity_slack))
+        # (src, dst) -> normalized byte-rate weight, undirected keys with
+        # src < dst: set_edge_graph swaps in a fresh dict, the solver thread
+        # snapshots the reference.
         self._edge_graph: dict[tuple[str, str], float] = {}
+        # Per-refine pass history ([{pass, cut, total, accepted}, ...]),
+        # swapped in whole: the monotonicity evidence tests and telemetry read.
+        self._affinity_history: list[dict] = []
         # Host-mirrored directory: "{type}.{id}" -> node index.
         self._placements: dict[str, int] = {}
         # Replica rows: "{type}.{id}" -> (standby addresses, epoch).
@@ -1740,9 +1829,8 @@ class TorchObjectPlacement(ObjectPlacement):
         calls_per_s, local_frac]``, extra columns optional). Client edges,
         self-edges and zero-rate rows are dropped; the rest are symmetrized,
         weighted as bytes/s plus 64 B per call, and normalized so the
-        heaviest edge is 1.0. Returns the edge count. The graph is stored
-        for the affinity refine, which a later slice ports (ROADMAP A.8);
-        with ``affinity_weight`` 0 no solve reads it."""
+        heaviest edge is 1.0. Returns the edge count. The next full solve
+        refines against it when ``affinity_weight > 0``."""
         edges: dict[tuple[str, str], float] = {}
         for r in rows or ():
             src, dst = str(r[0]), str(r[1])
@@ -1760,6 +1848,172 @@ class TorchObjectPlacement(ObjectPlacement):
             edges = {k: v / top for k, v in edges.items()}
         self._edge_graph = edges
         return len(edges)
+
+    def _affinity_refine(self, keys, assignment, node_order, cap, alive):
+        """Alternating linearized OT refinement over the edge graph.
+
+        Runs in the solver thread after a FULL solve (the JAX provider's
+        ``_affinity_refine``). Each pass linearizes the quadratic
+        co-location objective around the current assignment: an object's
+        attraction to node ``a`` is the edge-weighted sum of
+        ``hfac[a, seat(neighbor)]`` (1.0 same worker, host_factor same
+        host, 0.0 cross-host), folded into its cost row as a discount, and
+        the Sinkhorn core solves the rows of the edge-touching subset
+        (capped at ``_AFFINITY_MAX_ROWS`` heaviest, padded to a power-of-two
+        bucket with zero-mass rows). A pass is accepted only if both the
+        edge-cut transport cost and the total objective (capacity overflow
+        + weighted cut) are non-increasing.
+
+        The split: what decides acceptance stays on the host in the
+        reference's numpy dtypes and order (edge arrays, degrees, subset,
+        orientation, capacities, ``_cut``/``_total``: the test is
+        ``<= prev + 1e-9`` on values near 1, finer than float32 resolution);
+        each pass's (bucket x m) work runs on the provider's device
+        (attraction, cost rows, ``sinkhorn``, ``plan_rounded_assign``, the
+        bad-seat mask and the mover truncation), one pull of the new seats
+        ending it. Spans ``affinity_refine_prep`` (with
+        ``affinity_refine_index``: the key index and the edge lookup inside
+        it) and ``affinity_refine_pass`` time the two.
+
+        Returns the refined assignment (np.int32, length n) or None when
+        the graph touches no key of this directory or no pass changed a
+        seat.
+        """
+        edges = self._edge_graph  # atomic snapshot
+        w_aff = self._affinity_weight
+        n = len(keys)
+        dev = self.device
+        with span("affinity_refine_prep", n=n, edges=len(edges)):
+            with span("affinity_refine_index", n=n, edges=len(edges)):
+                key_ix = {k: i for i, k in enumerate(keys)}
+                ei: list[int] = []
+                ej: list[int] = []
+                ew: list[float] = []
+                for (a, b), w in edges.items():
+                    ia = key_ix.get(a)
+                    ib = key_ix.get(b)
+                    if ia is None or ib is None:
+                        continue
+                    ei.append(ia)
+                    ej.append(ib)
+                    ew.append(w)
+                del key_ix
+            if not ei:
+                return None
+            # Each undirected edge twice, so one sum gathers every object's
+            # full neighbourhood.
+            e_src = np.asarray(ei + ej, np.int64)
+            e_dst = np.asarray(ej + ei, np.int64)
+            e_w = np.asarray(ew + ew, np.float32)
+
+            cap_np = np.asarray(cap, np.float32)
+            alive_np = np.asarray(alive, np.float32)
+            m = cap_np.shape[0]
+            # The host is the address up to ":port"; padded columns get
+            # unique tokens, so their host mask is the identity.
+            hosts = [
+                node_order[i].rsplit(":", 1)[0] if i < len(node_order) else f"\x00pad{i}"
+                for i in range(m)
+            ]
+            host_id = _host_ids(hosts)
+            hf = self._affinity_host_factor
+            same_host = (host_id[:, None] == host_id[None, :]).astype(np.float32)
+            hfac = hf * same_host
+            np.fill_diagonal(hfac, 1.0)
+            dist = 1.0 - hfac  # 0 same worker / (1-hf) same host / 1 cross
+
+            # Edge-touching subset, heaviest first when over the row cap.
+            deg = np.zeros((n,), np.float32)
+            np.add.at(deg, e_src, e_w)
+            sub = np.nonzero(deg > 0.0)[0]
+            if sub.size > _AFFINITY_MAX_ROWS:
+                sub = np.sort(sub[np.argsort(-deg[sub], kind="stable")[:_AFFINITY_MAX_ROWS]])
+            pos = np.full((n,), -1, np.int64)
+            pos[sub] = np.arange(sub.size)
+            in_sub = pos[e_src] >= 0
+            # One endpoint of every edge is anchored each pass (a
+            # simultaneous update lets a chatty pair swap seats forever):
+            # even passes move the lighter-degree endpoint toward the
+            # heavier, odd passes the other way; ties break by index.
+            lighter = (deg[e_src] < deg[e_dst]) | ((deg[e_src] == deg[e_dst]) & (e_src < e_dst))
+
+            # The balance base row (the dense solve's cost model) and the
+            # slackened fair shares; the +1 covers integer granularity at
+            # small fair shares.
+            cap_t, alive_t = self._to_device(cap_np, alive_np)
+            base = build_cost_matrix(torch.zeros_like(cap_t), cap_t, alive_t)[0]
+            hfac_t = torch.from_numpy(hfac).to(dev)
+            cap_alive = cap_np * alive_np
+            fair = cap_alive / max(float(np.sum(cap_alive)), 1e-30) * n
+            slack_cap = fair * self._affinity_slack + 1.0
+            schedulable = (cap_alive > 0.0).astype(np.float64)
+            total_w = float(np.sum(e_w))
+
+        def _cut(seats: np.ndarray) -> float:
+            return float(np.sum(e_w * dist[seats[e_src], seats[e_dst]])) / max(total_w, 1e-30)
+
+        def _total(seats: np.ndarray) -> float:
+            counts = np.bincount(seats, minlength=m)
+            overflow = float(np.sum(np.maximum(counts - slack_cap, 0.0))) / n
+            return overflow + w_aff * _cut(seats)
+
+        seats = np.asarray(assignment, np.int32).copy()
+        history = [{"pass": 0, "cut": _cut(seats), "total": _total(seats), "accepted": True}]
+        g_warm = None
+        accepted_any = False
+        for p in range(self._affinity_passes):
+            mask = in_sub & (lighter if p % 2 == 0 else ~lighter)
+            if not np.any(mask):
+                continue
+            with span("affinity_refine_pass", p=p + 1):
+                # Only the mobile endpoints are re-solved; anchors and the
+                # rest hold their seats and consume capacity.
+                mobile = np.unique(e_src[mask])
+                sp = int(mobile.size)
+                pos_p = np.full((n,), -1, np.int64)
+                pos_p[mobile] = np.arange(sp)
+                attract = _attraction(
+                    pos_p[e_src[mask]], seats[e_dst[mask]], e_w[mask], hfac_t, sp
+                )
+                old = torch.from_numpy(seats[mobile].astype(np.int64)).to(dev)
+                rows = torch.arange(sp, device=dev)
+                cost = base.expand(sp, m) - w_aff * attract
+                # Stay-put discount: a refine move still pays the handoff.
+                cost[rows, old] -= self._move_cost
+                frozen = np.bincount(seats, minlength=m).astype(np.float64)
+                frozen -= np.bincount(seats[mobile], minlength=m)
+                col_cap = torch.from_numpy(
+                    np.maximum(slack_cap - frozen, 0.0) * schedulable
+                ).to(dev)
+                bucket = _next_bucket(sp)
+                mass = torch.zeros(bucket, dtype=torch.float32, device=dev)
+                mass[:sp] = 1.0
+                cost_p = torch.zeros((bucket, m), dtype=torch.float32, device=dev)
+                cost_p[:sp] = cost
+                f, g, _err = sinkhorn(
+                    cost_p, mass, col_cap.float(),
+                    eps=self._eps, n_iters=self._n_iters, g_init=g_warm,
+                )
+                g_warm = g  # warm-starts the next linearization
+                new = plan_rounded_assign(cost_p, f, g, self._eps)[:sp].long()
+                # A row the rounded plan could not seat on a live column
+                # keeps its seat.
+                bad = (new < 0) | (new >= m) | (alive_t[new % m] <= 0.0)
+                new = torch.where(bad, old, new)
+                gain = cost[rows, old] - cost[rows, new]
+                new_seats = _truncate_movers(new, old, gain, col_cap).cpu().numpy().astype(np.int32)
+            cand = seats.copy()
+            cand[mobile] = new_seats
+            c_cut, c_tot = _cut(cand), _total(cand)
+            ok = c_cut <= history[-1]["cut"] + 1e-9 and c_tot <= history[-1]["total"] + 1e-9
+            history.append({"pass": p + 1, "cut": c_cut, "total": c_tot, "accepted": ok})
+            if not ok:
+                break
+            if not np.array_equal(cand, seats):
+                accepted_any = True
+            seats = cand
+        self._affinity_history = history  # atomic swap (tests/telemetry)
+        return seats if accepted_any else None
 
     # ------------------------------------------------------- full rebalance
     def _object_weights(self, keys: list[str]) -> np.ndarray | None:
@@ -1903,7 +2157,8 @@ class TorchObjectPlacement(ObjectPlacement):
         ``"<mode>+collapsed"``, ``"<mode>"`` (dense, greedy or hierarchical),
         ``"<mode>+hier_at_scale"`` (a flat rebalance above
         ``_FLAT_REBALANCE_MAX_ROWS`` padded rows, routed through the
-        hierarchical solve) or ``"<mode>+no_capacity"``.
+        hierarchical solve) or ``"<mode>+no_capacity"``; a full solve that
+        the affinity refine changed adds ``"+affinity"``.
 
         The epoch is snapshotted before the solve, and the result is
         discarded if the directory changed underneath it. ``move_sink``
@@ -1992,6 +2247,18 @@ class TorchObjectPlacement(ObjectPlacement):
                     )
                     assignment = assignment[:n].cpu().numpy()
                 out = _route_unseatable(assignment, len(node_order), load, alive, cap)
+            # Communication-graph refinement, full solves only (the delta
+            # paths returned above; their warm potentials price pure
+            # balance), from the routed assignment, a feasible seating.
+            if self._affinity_weight > 0.0 and self._edge_graph:
+                try:
+                    refined = self._affinity_refine(keys, out, node_order, cap, alive)
+                except Exception:  # noqa: BLE001 - refine must never kill a solve
+                    log.exception("affinity refine failed; keeping base solve")
+                    refined = None
+                if refined is not None:
+                    out = _route_unseatable(refined, len(node_order), load, alive, cap)
+                    solved_as = f"{solved_as}+affinity"
             return out, g, coarse_g, _elapsed_ms(t0), solved_as, n, False, conv
 
         (

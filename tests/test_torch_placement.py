@@ -469,9 +469,12 @@ async def _option_scenario(api, kw):
     p = api.make(node_axis_size=16, **kw)
     p.sync_members([f"10.33.0.{i}:70" for i in range(16)])
     await p.assign_batch([api.ObjectId("Opt", str(i)) for i in range(320)])
+    # Chatty pairs: read only with affinity_weight > 0.
+    p.set_edge_graph([[f"Opt.{i}", f"Opt.{i + 160}", 1e6, 10.0, 0.0] for i in range(40)])
     await p.rebalance(delta=False)
-    assert p.stats.mode == "hierarchical", p.stats.mode
-    return [snap_hier(p)]
+    want = "hierarchical+affinity" if kw.get("affinity_weight") else "hierarchical"
+    assert p.stats.mode == want, p.stats.mode
+    return [snap_hier(p, history=[(h["pass"], h["accepted"]) for h in p._affinity_history])]
 
 
 @pytest.mark.parametrize(
@@ -482,14 +485,16 @@ async def _option_scenario(api, kw):
         (lambda api: {"node_features": _key_features}, None),
         (lambda api: {"affinity_tracker": api.Tracker()}, None),
         (lambda api: {"mesh": object()}, "A.11"),
-        (lambda api: {"affinity_weight": 0.5}, "A.8"),
+        (lambda api: {"mode": "hierarchical", "affinity_weight": 2.0}, None),
     ],
     ids=["hierarchical", "obj_features", "node_features", "affinity_tracker", "mesh", "affinity_weight"],
 )
 def test_later_slice_options_raise(kw, item):
-    """A mesh (A.11) and the affinity refine (A.8) still raise, naming their
-    ROADMAP item. The hierarchical mode, feature hooks and a tracker (A.7,
-    A.9) now run: a full solve in mode "hierarchical" matching JAX."""
+    """A mesh (A.11) still raises, naming its ROADMAP item. The
+    hierarchical mode, feature hooks and a tracker (A.7, A.9) now run, and
+    so does the affinity refine (A.8): a full solve in mode
+    "hierarchical" (with the refine, "hierarchical+affinity" and its pass
+    history) matching JAX."""
     if item is None:
         run_both(lambda api: _option_scenario(api, kw(api)))
         return

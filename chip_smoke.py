@@ -122,6 +122,39 @@ Phases, each printing one JSON line:
      dead and marks nothing dirty; ``sync_members`` with the survivors and a full
      rebalance on the card (live nodes at integer fair quotas), whose moves are flushed.
      Then ``persistent_times``.
+16. the ``mesh`` group: 8 shards of the one card (``make_mesh([cuda:0] * 8)``, a (4, 2)
+   grid), each phase with its wall ms after ``torch.cuda.synchronize()``, peak device
+   memory and both kernels' launch counts (0: inside the reference's ``shard_map`` runs
+   plain ``jnp``), the provider phases with ``stats.mode``, ``devices``, ``chunks``,
+   ``solve_ms``, ``apply_ms``, moved and displaced:
+
+   - ``mesh_flat``: ``make_problem(seed=0)`` at 1,048,576 x 1,024 (eps 0.05, 30
+     iterations): ``sharded_sinkhorn`` and the bfloat16 ``sharded_scaling_sinkhorn``
+     against the single-device ``sinkhorn`` and ``scaling_sinkhorn``, f and g within
+     1e-4 (1 + |ref|); ``sharded_sinkhorn_assign`` against ``sinkhorn_assign``, rows
+     differing <= 2%; every cost block a view of the one 4 GiB cost;
+   - ``mesh_hier``: ``hier_assign``'s problem through
+     ``mesh_chunked_hierarchical_assign_timed`` in 4 chunks a shard (32 cells of 524,288
+     rows): equal to ``hier_assign``'s 32-chunk result row for row, the untimed form
+     equal, no overflow, live loads within 10% of fair;
+   - ``mesh_directory``: ``TorchObjectPlacement(mesh=...)`` at 1,048,576 objects, 30
+     nodes killed: ``mode="sinkhorn"`` runs the dense mesh branch (mode ``sinkhorn``,
+     live nodes at integer fair quotas); ``mode="hierarchical"`` runs 8 shards (mode
+     ``hierarchical``), and a second full solve warm-starts; a 1-shard mesh
+     (``hierarchical+mesh_chunk``, 2 chunks) seats every object as a provider with no
+     mesh does;
+   - ``mesh_at_scale``: ``mode="sinkhorn"`` on the mesh at 10,485,760 objects,
+     ``assign_batch``, 31 nodes killed, ``rebalance(delta=False)`` in mode
+     ``sinkhorn+hier_at_scale+mesh_chunk`` (8 shards, 4 chunks), dead nodes empty, live
+     loads within 10% of fair; undisplaced moves printed;
+   - ``mesh_nccl``: ``torch.distributed.is_nccl_available()``, a process group of one
+     (NCCL, or gloo on CUDA tensors when NCCL is missing, named on the line), and
+     ``sharded_hierarchical_assign`` at 1,048,576 rows through it equal to the same call
+     without a group;
+   - ``mesh_dryrun``: ``entry.dryrun_multichip(8)`` on the card with the reference's
+     bounds; it prints the phase-2 transport-cost ratio (<= 1.12).
+
+   Then ``mesh_times``.
 
 Then the ``kernels`` line and, last, ``{"ok": true, "device": {...}}``. Any failed
 check raises, so the script exits non-zero and prints no result. Without a CUDA
@@ -180,6 +213,12 @@ TOL_AFF_CUT = 1e-5
 # The persistent group: 1,048,576 objects over LocalObjectPlacement, 30 nodes killed.
 PERS_OBJ, PERS_KILL = 1 << 20, 30
 PERS_FLUSH_INTERVAL = 3600.0
+# The mesh group: 8 shards of the one card, a (4, 2) mesh; BASELINE row 5 in 4
+# chunks a shard (32 cells, as hier_assign's 32 chunks); the process-group
+# check at 1,048,576 rows.
+MESH_SHARDS, MESH_CHUNKS, MESH_NCCL_ROWS = 8, 4, 1 << 20
+TOL_MESH = 1e-4  # sharded potentials against the single-device solve (__graft_entry__.py:188-193)
+MESH_ROW_MISMATCH = 0.02  # sharded rows against the single-device rounding (:198)
 
 
 def emit(phase: str, **fields) -> None:
@@ -481,8 +520,67 @@ async def directory_phases(dev, card: dict) -> dict:
     return out
 
 
-async def hier_phases(dev, card: dict) -> dict:
-    """The ``hier`` group (phase 13): returns the times it printed."""
+def seat_array_of(p):
+    """Each object's node index, in the directory's insertion order."""
+    import numpy as np
+
+    return np.fromiter(p._placements.values(), np.int64, count=p.count())
+
+
+def hier_stats_fields(p) -> dict:
+    s = p.stats
+    return {"mode": s.mode, "solve_ms": s.solve_ms, "apply_ms": s.apply_ms,
+            "chunks": s.chunks, "devices": s.devices, "chunk_ms": s.chunk_ms,
+            "moved": s.moved, "displaced": s.displaced, "residual": s.residual}
+
+
+def live_spread(loads, gone, n, what: str) -> list:
+    """Dead nodes empty; live loads within HIER_LOAD_SLACK of fair; [min, max]."""
+    import numpy as np
+
+    live = np.asarray([i not in gone for i in range(DIR_NODES)])
+    fair = n / live.sum()
+    check(int(loads[~live].sum()) == 0, f"{what}: objects on dead nodes")
+    lo, hi = int(loads[live].min()), int(loads[live].max())
+    check((1 - HIER_LOAD_SLACK) * fair <= lo and hi <= (1 + HIER_LOAD_SLACK) * fair,
+          f"{what}: live loads {lo}..{hi} against fair {fair:.1f}")
+    return [lo, hi]
+
+
+def hier_dead() -> list:
+    """The HIER_DEAD nodes that BASELINE row 5's phases kill."""
+    import numpy as np
+
+    return sorted(int(i) for i in np.random.default_rng(2).choice(DIR_NODES, HIER_DEAD, replace=False))
+
+
+def hier_assign_inputs(dev, dead):
+    """``hier_assign``'s problem at the provider's shape: seeded (n_pad, 16)
+    object and (16, m) node features, unit capacities, ``dead`` nodes off,
+    the solve keywords and the chunk count (rows over ``_HIER_CHUNK_ROWS``)."""
+    import torch
+
+    from rio_tpu_torch.object_placement import torch_placement as tp
+
+    n_pad = tp._next_bucket(HIER_OBJ)
+    n_chunks = max(1, n_pad // tp._HIER_CHUNK_ROWS)
+    rows = n_pad // n_chunks
+    n_groups, group_size = DIR_NODES // 8, 8
+    alive = torch.ones(DIR_NODES)
+    alive[dead] = 0.0
+    live_cap = alive.view(n_groups, group_size).sum(dim=1)
+    share = float(live_cap.max() / live_cap.sum())
+    bucket = min(tp._next_bucket(max(8, int(1.3 * rows * share)), minimum=8), rows)
+    kw = dict(n_groups=n_groups, bucket=bucket, eps=EPS, coarse_iters=N_ITERS, fine_iters=N_ITERS)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    obj = torch.randn((n_pad, tp._FEAT_DIM), generator=gen, device=dev)
+    node = torch.randn((tp._FEAT_DIM, DIR_NODES), generator=gen, device=dev) * 0.2
+    return obj, node, torch.ones(DIR_NODES, device=dev), alive.to(dev), kw, n_chunks
+
+
+async def hier_phases(dev, card: dict, keep: dict) -> dict:
+    """The ``hier`` group (phase 13): returns the times it printed and puts
+    ``hier_assign``'s assignment (numpy) into ``keep``."""
     import numpy as np
     import torch
 
@@ -497,31 +595,13 @@ async def hier_phases(dev, card: dict) -> dict:
     from rio_tpu_torch.registry import ObjectId
 
     addrs = [f"10.{i // 256}.{i % 256}.2:5000" for i in range(DIR_NODES)]
-    rng = np.random.default_rng(2)
-    dead = sorted(int(i) for i in rng.choice(DIR_NODES, HIER_DEAD, replace=False))
+    dead = hier_dead()
     out: dict = {}
 
     def members(gone) -> list:
         return [_Member(a, i not in gone) for i, a in enumerate(addrs)]
 
-    def seat_array(p) -> np.ndarray:
-        return np.fromiter(p._placements.values(), np.int64, count=p.count())
-
-    def live_spread(loads, gone, n, what: str) -> list:
-        """Dead nodes empty; live loads within HIER_LOAD_SLACK of fair; [min, max]."""
-        live = np.asarray([i not in gone for i in range(DIR_NODES)])
-        fair = n / live.sum()
-        check(int(loads[~live].sum()) == 0, f"{what}: objects on dead nodes")
-        lo, hi = int(loads[live].min()), int(loads[live].max())
-        check((1 - HIER_LOAD_SLACK) * fair <= lo and hi <= (1 + HIER_LOAD_SLACK) * fair,
-              f"{what}: live loads {lo}..{hi} against fair {fair:.1f}")
-        return [lo, hi]
-
-    def stats_fields(p) -> dict:
-        s = p.stats
-        return {"mode": s.mode, "solve_ms": s.solve_ms, "apply_ms": s.apply_ms,
-                "chunks": s.chunks, "devices": s.devices, "chunk_ms": s.chunk_ms,
-                "moved": s.moved, "displaced": s.displaced, "residual": s.residual}
+    stats_fields, seat_array = hier_stats_fields, seat_array_of
 
     # -- hier_features: _hash_features for HIER_OBJ keys ------------------------
     keys = [f"Hier.{i}" for i in range(HIER_OBJ)]
@@ -567,20 +647,9 @@ async def hier_phases(dev, card: dict) -> dict:
     del keys, seeds, feats, draws, seeds_t
 
     # -- hier_assign: chunked_hierarchical_assign_timed at the provider's shape --
-    n_pad = tp._next_bucket(HIER_OBJ)
-    n_chunks = max(1, n_pad // tp._HIER_CHUNK_ROWS)
+    obj, node, cap, alive, kw, n_chunks = hier_assign_inputs(dev, dead)
+    n_pad, n_groups, bucket = obj.shape[0], kw["n_groups"], kw["bucket"]
     rows = n_pad // n_chunks
-    n_groups, group_size = DIR_NODES // 8, 8
-    alive = torch.ones(DIR_NODES)
-    alive[dead] = 0.0
-    live_cap = alive.view(n_groups, group_size).sum(dim=1)
-    share = float(live_cap.max() / live_cap.sum())
-    bucket = min(tp._next_bucket(max(8, int(1.3 * rows * share)), minimum=8), rows)
-    kw = dict(n_groups=n_groups, bucket=bucket, eps=EPS, coarse_iters=N_ITERS, fine_iters=N_ITERS)
-    gen = torch.Generator(device=dev).manual_seed(11)
-    obj = torch.randn((n_pad, tp._FEAT_DIM), generator=gen, device=dev)
-    node = torch.randn((tp._FEAT_DIM, DIR_NODES), generator=gen, device=dev) * 0.2
-    cap, alive = torch.ones(DIR_NODES, device=dev), alive.to(dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_launches()
@@ -605,6 +674,7 @@ async def hier_phases(dev, card: dict) -> dict:
     check(np.array_equal(np.bincount(card0, minlength=DIR_NODES), np.bincount(cpu0, minlength=DIR_NODES)),
           "chunk 0's node counts differ between the card and the CPU")
     check(agree >= HIER_ROW_AGREEMENT, f"chunk 0 rows agree {agree} with the CPU")
+    keep["hier_assign"] = assignment  # mesh_hier's reference
     out.update(assign_ms=assign_ms, chunk_ms_median=statistics.median(chunk_ms),
                chunk_ms_first=chunk_ms[0], chunk_ms_max=max(chunk_ms))
     emit("hier_assign", **card, n=HIER_OBJ, rows=n_pad, m=DIR_NODES, dead=HIER_DEAD,
@@ -1056,6 +1126,294 @@ async def persistent_phases(dev, card: dict) -> dict:
     return out
 
 
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def measured(fn, what: str):
+    """Run ``fn`` with both kernel counts at 0: its result, wall ms after a
+    device synchronize, the counts (each must be 0) and the peak memory."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return result, ms, _read_launches(what), torch.cuda.max_memory_allocated()
+
+
+async def mesh_phases(dev, card: dict, hier_assignment) -> tuple[dict, dict]:
+    """The ``mesh`` group (phase 16): returns the times it printed and each
+    kernel's launches summed over the group (0). ``hier_assignment`` is
+    ``hier_assign``'s 32-chunk single-device result."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from rio_tpu_torch import entry
+    from rio_tpu_torch.object_placement import TorchObjectPlacement
+    from rio_tpu_torch.object_placement import torch_placement as tp
+    from rio_tpu_torch.ops import integer_fair_quotas, scaling_sinkhorn, sinkhorn, sinkhorn_assign
+    from rio_tpu_torch.parallel import (
+        make_mesh,
+        multihost,
+        shard_cost,
+        sharded_scaling_sinkhorn,
+        sharded_sinkhorn,
+        sharded_sinkhorn_assign,
+    )
+    from rio_tpu_torch.parallel.hierarchical import (
+        mesh_chunked_hierarchical_assign,
+        mesh_chunked_hierarchical_assign_timed,
+        sharded_hierarchical_assign,
+    )
+    from rio_tpu_torch.registry import ObjectId
+
+    mesh = make_mesh([dev] * MESH_SHARDS)
+    check(mesh.devices.shape == (4, 2) and not mesh.distributed, f"mesh {mesh}")
+    out: dict = {}
+    launches_total = {"fused_scaling_iteration": 0, "fused_iteration": 0}
+
+    def count(launches: dict) -> dict:
+        for k, v in launches.items():
+            launches_total[k] += v
+        return launches
+
+    async def provider_step(coro_fn, what: str):
+        result, ms, launches, peak = await provider_call(coro_fn, what)
+        return result, ms, count(launches), peak
+
+    # -- mesh_flat: the dense sharded solves at 1,048,576 x 1,024 ----------------
+    cost, mass, cap = entry.make_problem(N_OBJ, N_NODES, seed=0, device=dev)
+    sc = shard_cost(mesh, cost)
+    views = all(b.untyped_storage().data_ptr() == cost.untyped_storage().data_ptr()
+                for b in sc.blocks.values())
+    check(views and len(sc.blocks) == MESH_SHARDS, "shard_cost copied the cost")
+    flat: dict = {}
+    (f_ld, g_ld), ms, launches, peak = measured(
+        lambda: sharded_sinkhorn(mesh, sc, mass, cap, eps=EPS, n_iters=N_ITERS), "sharded_sinkhorn")
+    single, single_ms, _, single_peak = measured(
+        lambda: sinkhorn(cost, mass, cap, eps=EPS, n_iters=N_ITERS), "sinkhorn")
+    flat["sharded_sinkhorn"] = {
+        "wall_ms": ms, "single_ms": single_ms, "peak_bytes": peak, "single_peak_bytes": single_peak,
+        "f_max_abs": max_abs_close(f_ld, single.f, TOL_MESH, "sharded_sinkhorn f"),
+        "g_max_abs": max_abs_close(g_ld, single.g, TOL_MESH, "sharded_sinkhorn g"), "launches": count(launches)}
+    del single, f_ld, g_ld
+    (f_sc, g_sc), ms, launches, peak = measured(
+        lambda: sharded_scaling_sinkhorn(mesh, sc, mass, cap, eps=EPS, n_iters=N_ITERS,
+                                         kernel_dtype=torch.bfloat16), "sharded_scaling_sinkhorn")
+    single, single_ms, _, single_peak = measured(
+        lambda: scaling_sinkhorn(cost, mass, cap, eps=EPS, n_iters=N_ITERS, kernel_dtype=torch.bfloat16),
+        "scaling_sinkhorn")
+    flat["sharded_scaling_sinkhorn"] = {
+        "kernel_dtype": "bfloat16", "wall_ms": ms, "single_ms": single_ms, "peak_bytes": peak,
+        "single_peak_bytes": single_peak,
+        "f_max_abs": max_abs_close(f_sc, single.f, TOL_MESH, "sharded_scaling_sinkhorn f"),
+        "g_max_abs": max_abs_close(g_sc, single.g, TOL_MESH, "sharded_scaling_sinkhorn g"),
+        "launches": count(launches)}
+    del single, f_sc, g_sc
+    rows_sh, ms, launches, peak = measured(
+        lambda: sharded_sinkhorn_assign(mesh, sc, mass, cap, eps=EPS, n_iters=N_ITERS),
+        "sharded_sinkhorn_assign")
+    rows_si, _ = sinkhorn_assign(cost, mass, cap, eps=EPS, n_iters=N_ITERS)
+    mismatch = float((rows_sh != rows_si).float().mean())
+    check(mismatch <= MESH_ROW_MISMATCH, f"sharded rows differ from the single-device rounding on {mismatch}")
+    flat["sharded_sinkhorn_assign"] = {"wall_ms": ms, "peak_bytes": peak, "row_mismatch": mismatch,
+                                       "launches": count(launches)}
+    out.update(flat_sinkhorn_ms=flat["sharded_sinkhorn"]["wall_ms"],
+               flat_single_sinkhorn_ms=flat["sharded_sinkhorn"]["single_ms"],
+               flat_scaling_ms=flat["sharded_scaling_sinkhorn"]["wall_ms"],
+               flat_single_scaling_ms=flat["sharded_scaling_sinkhorn"]["single_ms"],
+               flat_assign_ms=ms)
+    emit("mesh_flat", **card, n=N_OBJ, m=N_NODES, mesh=mesh.shape, eps=EPS, n_iters=N_ITERS,
+         tol=TOL_MESH, cost_bytes=cost.numel() * cost.element_size(), cost_held_once=views,
+         max_row_mismatch=MESH_ROW_MISMATCH, **flat)
+    del cost, mass, cap, sc, rows_sh, rows_si
+    torch.cuda.empty_cache()
+
+    # -- mesh_hier: BASELINE row 5 over 8 shards x 4 chunks -----------------------
+    dead = hier_dead()
+    obj, node, cap, alive, kw, n_chunks = hier_assign_inputs(dev, dead)
+    check(n_chunks == MESH_SHARDS * MESH_CHUNKS, f"hier_assign ran {n_chunks} chunks")
+    (res, chunk_ms), ms, launches, peak = measured(
+        lambda: mesh_chunked_hierarchical_assign_timed(mesh, obj, node, cap, alive, n_chunks=MESH_CHUNKS, **kw),
+        "the mesh x chunk solve")
+    assignment = res.assignment.cpu().numpy()
+    equal = bool(np.array_equal(assignment, hier_assignment))
+    check(equal, "the 8 x 4 mesh solve differs from hier_assign's 32 chunks")
+    check(int(res.overflow) == 0, f"overflow {int(res.overflow)}")
+    spread = live_spread(np.bincount(assignment, minlength=DIR_NODES), set(dead), obj.shape[0], "mesh_hier")
+    untimed, untimed_ms, untimed_launches, _ = measured(
+        lambda: mesh_chunked_hierarchical_assign(mesh, obj, node, cap, alive, n_chunks=MESH_CHUNKS, **kw),
+        "the untimed mesh x chunk solve")
+    check(torch.equal(untimed.assignment, res.assignment) and torch.equal(untimed.group, res.group)
+          and int(untimed.overflow) == int(res.overflow) and torch.equal(untimed.coarse_g, res.coarse_g),
+          "the untimed form differs from the timed form")
+    count(untimed_launches)
+    out.update(hier_ms=ms, hier_untimed_ms=untimed_ms, hier_chunk_ms_median=statistics.median(chunk_ms))
+    emit("mesh_hier", **card, n=HIER_OBJ, rows=obj.shape[0], m=DIR_NODES, dead=HIER_DEAD,
+         mesh=mesh.shape, chunks_a_shard=MESH_CHUNKS, cells=MESH_SHARDS * MESH_CHUNKS,
+         cell_rows=obj.shape[0] // (MESH_SHARDS * MESH_CHUNKS), groups=kw["n_groups"], bucket=kw["bucket"],
+         wall_ms=ms, chunk_ms=chunk_ms, untimed_ms=untimed_ms, overflow=int(res.overflow),
+         live_loads=spread, equals_hier_assign=equal, coarse_residual=float(res.coarse_err),
+         peak_bytes=peak, launches=count(launches))
+    del obj, node, res, untimed, assignment
+    torch.cuda.empty_cache()
+
+    # -- mesh_directory: TorchObjectPlacement(mesh=...) at 1,048,576 x 1,024 ------
+    addrs = [f"10.{i // 256}.{i % 256}.4:5000" for i in range(DIR_NODES)]
+    killed = sorted(int(i) for i in np.random.default_rng(3).choice(DIR_NODES, DIR_KILL, replace=False))
+
+    def members(gone) -> list:
+        return [_Member(a, i not in gone) for i, a in enumerate(addrs)]
+
+    ids = [ObjectId("Mesh", str(i)) for i in range(DIR_OBJ)]
+    directory: dict = {}
+
+    async def seated(**kw):
+        p = TorchObjectPlacement(eps=EPS, n_iters=N_ITERS, move_cost=DIR_MOVE_COST,
+                                 node_axis_size=DIR_NODES, **kw)
+        p.sync_members(members(()))
+        _, ms, launches, peak = await provider_step(lambda: p.assign_batch(ids), "assign_batch")
+        return p, {"wall_ms": ms, "peak_bytes": peak, "launches": launches}
+
+    async def full(p, what: str, gone=()) -> dict:
+        """A timed ``rebalance(delta=False)``; moves of objects not on the
+        ``gone`` nodes are counted as undisplaced."""
+        before = seat_array_of(p)
+        _, ms, launches, peak = await provider_step(lambda: p.rebalance(delta=False), what)
+        after = seat_array_of(p)
+        gone_idx = [p._nodes[addrs[i]].index for i in gone]
+        undisplaced = int(((before != after) & ~np.isin(before, gone_idx)).sum())
+        return {"wall_ms": ms, **hier_stats_fields(p), "warm_ratio": p.stats.warm_ratio,
+                "undisplaced_moves": undisplaced, "peak_bytes": peak, "launches": launches}
+
+    # mode="sinkhorn": the dense branch over the sharded cost, no collapse.
+    p, assign = await seated(mode="sinkhorn", mesh=mesh)
+    check(p.device == dev, f"the provider sits on {p.device}")
+    p.sync_members(members(set(killed)))
+    dense = await full(p, "the dense mesh rebalance", killed)
+    check(p.stats.mode == "sinkhorn", f"the dense mesh rebalance ran {p.stats.mode}")
+    counts = np.bincount(seat_array_of(p), minlength=DIR_NODES)
+    live_idx = [p._nodes[a].index for i, a in enumerate(addrs) if i not in killed]
+    dead_idx = [p._nodes[addrs[i]].index for i in killed]
+    check(int(counts[dead_idx].sum()) == 0, "objects on dead nodes after the dense mesh rebalance")
+    quota = integer_fair_quotas(np.ones(len(live_idx)), DIR_OBJ)
+    check(bool(np.array_equal(np.sort(counts[live_idx]), np.sort(quota))),
+          "dense mesh rebalance: live nodes off their integer fair quotas")
+    directory["sinkhorn"] = {"assign": assign, **dense, "live_loads": [int(counts[live_idx].min()),
+                                                                       int(counts[live_idx].max())]}
+    del p
+
+    # mode="hierarchical": every shard's rows alone, then a warm second solve.
+    p, assign = await seated(mode="hierarchical", mesh=mesh)
+    p.sync_members(members(set(killed)))
+    first = await full(p, "the hierarchical mesh rebalance", killed)
+    check(p.stats.mode == "hierarchical" and p.stats.devices == MESH_SHARDS and p.stats.chunks == 1,
+          f"hierarchical mesh rebalance: {p.stats.mode} on {p.stats.devices} shards, {p.stats.chunks} chunks")
+    first["live_loads"] = live_spread(np.bincount(seat_array_of(p), minlength=DIR_NODES), set(killed),
+                                      DIR_OBJ, "hierarchical mesh rebalance")
+    second = await full(p, "the warm hierarchical mesh rebalance", killed)
+    check(p.stats.mode == "hierarchical" and p.stats.warm_ratio > 0,
+          f"second mesh solve: {p.stats.mode}, warm ratio {p.stats.warm_ratio}")
+    directory["hierarchical"] = {"assign": assign, "first": first, "second": second}
+    del p
+
+    # A 1-shard mesh against no mesh, on the same directory.
+    one, _ = await seated(mode="hierarchical", mesh=make_mesh([dev]))
+    plain, _ = await seated(mode="hierarchical", device=dev)
+    check(one._placements == plain._placements, "the two directories differ before the solve")
+    one_full = await full(one, "the 1-shard mesh rebalance")
+    plain_full = await full(plain, "the single-device rebalance")
+    chunks = max(1, tp._next_bucket(DIR_OBJ) // tp._HIER_CHUNK_ROWS)
+    check(one.stats.mode == "hierarchical+mesh_chunk" and one.stats.devices == 1 and one.stats.chunks == chunks,
+          f"1-shard mesh: {one.stats.mode}, {one.stats.devices} shards, {one.stats.chunks} chunks")
+    check(plain.stats.mode == "hierarchical" and plain.stats.chunks == chunks, f"no mesh: {plain.stats.mode}")
+    equal_seats = one._placements == plain._placements
+    check(equal_seats, "the 1-shard mesh's seats differ from the single-device provider's")
+    directory["one_shard"] = {"mesh": one_full, "no_mesh": plain_full, "equal_seats": equal_seats}
+    del one, plain, ids
+    out.update(dir_dense_ms=directory["sinkhorn"]["wall_ms"], dir_dense_solve_ms=directory["sinkhorn"]["solve_ms"],
+               dir_hier_ms=first["wall_ms"], dir_hier_solve_ms=first["solve_ms"],
+               dir_hier_warm_solve_ms=second["solve_ms"], dir_one_shard_solve_ms=one_full["solve_ms"],
+               dir_no_mesh_solve_ms=plain_full["solve_ms"])
+    emit("mesh_directory", **card, n=DIR_OBJ, m=DIR_NODES, killed=DIR_KILL, mesh=mesh.shape, **directory)
+    torch.cuda.empty_cache()
+
+    # -- mesh_at_scale: a routed flat rebalance over the mesh at 10,485,760 -------
+    p = TorchObjectPlacement(mode="sinkhorn", eps=EPS, n_iters=N_ITERS, node_axis_size=DIR_NODES, mesh=mesh)
+    p.sync_members(members(()))
+    ids = [ObjectId("MeshScale", str(i)) for i in range(HIER_OBJ)]
+    _, assign_ms, launches, peak = await provider_step(lambda: p.assign_batch(ids), "assign_batch")
+    del ids
+    before = seat_array_of(p)
+    p.sync_members(members(set(dead)))
+    _, ms, step_launches, step_peak = await provider_step(lambda: p.rebalance(delta=False),
+                                                          "the routed mesh rebalance")
+    mode = "sinkhorn+hier_at_scale+mesh_chunk"
+    check(p.stats.mode == mode, f"routed mesh rebalance ran {p.stats.mode}")
+    check(p.stats.devices == MESH_SHARDS and p.stats.chunks == MESH_CHUNKS,
+          f"routed mesh rebalance: {p.stats.chunks} chunks on {p.stats.devices} shards")
+    after = seat_array_of(p)
+    spread = live_spread(np.bincount(after, minlength=DIR_NODES), set(dead), HIER_OBJ, "routed mesh rebalance")
+    undisplaced = int(((before != after) & ~np.isin(before, [p._nodes[addrs[i]].index for i in dead])).sum())
+    out.update(scale_assign_ms=assign_ms, scale_kill_ms=ms, scale_kill_solve_ms=p.stats.solve_ms,
+               scale_kill_apply_ms=p.stats.apply_ms)
+    emit("mesh_at_scale", **card, n=HIER_OBJ, m=DIR_NODES, killed=HIER_DEAD, mesh=mesh.shape,
+         assign={"wall_ms": assign_ms, "peak_bytes": peak, "launches": launches},
+         wall_ms=ms, **hier_stats_fields(p), live_loads=spread, undisplaced_moves=undisplaced,
+         peak_bytes=step_peak, launches=step_launches)
+    del p, before, after
+    torch.cuda.empty_cache()
+
+    # -- mesh_nccl: the collectives through a process group of one -------------
+    nccl = dist.is_nccl_available()
+    backend = "nccl" if nccl else "gloo"
+    gen = torch.Generator(device=dev).manual_seed(13)
+    obj = torch.randn((MESH_NCCL_ROWS, tp._FEAT_DIM), generator=gen, device=dev)
+    node = torch.randn((tp._FEAT_DIM, DIR_NODES), generator=gen, device=dev) * 0.2
+    alive = torch.ones(DIR_NODES, device=dev)
+    alive[dead] = 0.0
+    cap = torch.ones(DIR_NODES, device=dev)
+    kw = dict(n_groups=DIR_NODES // 8, eps=EPS, coarse_iters=N_ITERS, fine_iters=N_ITERS)
+    plain, plain_ms, launches, _ = measured(
+        lambda: sharded_hierarchical_assign(mesh, obj, node, cap, alive, **kw), "the sharded solve")
+    count(launches)
+    up = multihost.initialize(f"127.0.0.1:{free_port()}", 1, 0, backend=backend)
+    try:
+        check(not up and dist.get_backend() == backend, f"the group runs {dist.get_backend()}")
+        gmesh = make_mesh([dev] * MESH_SHARDS)
+        check(gmesh.distributed and gmesh.devices.shape == mesh.devices.shape, f"group mesh {gmesh}")
+        grouped, ms, launches, peak = measured(
+            lambda: sharded_hierarchical_assign(gmesh, obj, node, cap, alive, **kw), "the grouped solve")
+    finally:
+        dist.destroy_process_group()
+    equal = (torch.equal(grouped.assignment, plain.assignment) and int(grouped.overflow) == int(plain.overflow)
+             and torch.equal(grouped.coarse_g, plain.coarse_g))
+    check(equal, "the solve with a process group up differs from the solve without one")
+    out.update(nccl_grouped_ms=ms, nccl_plain_ms=plain_ms)
+    emit("mesh_nccl", **card, nccl_available=nccl, backend=backend, world_size=1, rows=MESH_NCCL_ROWS,
+         m=DIR_NODES, mesh=mesh.shape, wall_ms=ms, plain_ms=plain_ms, equal=equal,
+         overflow=int(grouped.overflow), peak_bytes=peak, launches=count(launches))
+    del obj, node, plain, grouped
+
+    # -- mesh_dryrun: entry.dryrun_multichip over 8 shards of the card ----------
+    result, ms, launches, peak = measured(lambda: entry.dryrun_multichip(MESH_SHARDS, device=dev), "the dryrun")
+    ratio = result["phase2"]["cost_ratio"]
+    check(ratio <= 1.12, f"phase-2 transport-cost ratio {ratio}")
+    out.update(dryrun_ms=ms)
+    emit("mesh_dryrun", **card, wall_ms=ms, cost_ratio=ratio, **result, peak_bytes=peak,
+         launches=count(launches))
+    return out, launches_total
+
+
 def main() -> int:
     import torch
 
@@ -1428,7 +1786,8 @@ def main() -> int:
 
     # -- 13. the hierarchical solve ---------------------------------------------
     torch.cuda.empty_cache()
-    hier = asyncio.run(hier_phases(dev, card))
+    keep: dict = {}
+    hier = asyncio.run(hier_phases(dev, card, keep))
     emit("hier_times", **card, **hier)
 
     # -- 14. the affinity refine ------------------------------------------------
@@ -1440,6 +1799,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     persistent = asyncio.run(persistent_phases(dev, card))
     emit("persistent_times", **card, **persistent)
+
+    # -- 16. the mesh-sharded solves ----------------------------------------------
+    torch.cuda.empty_cache()
+    mesh_times, mesh_launches = asyncio.run(mesh_phases(dev, card, keep.pop("hier_assign")))
+    emit("mesh_times", **card, **mesh_times)
 
     print(json.dumps({"kernels": [{
         "name": "fused_scaling_iteration",
@@ -1453,6 +1817,7 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": library_ms,
+        "mesh_launches": mesh_launches["fused_scaling_iteration"],
     }, {
         "name": "fused_iteration",
         "route": "cuda",
@@ -1465,6 +1830,7 @@ def main() -> int:
         "bound_ms": ld_bound_ms,
         "bound_by": "bytes" if ld_bytes_ms >= ld_exp_ms else "operations",
         "library_ms": ld_library_ms,
+        "mesh_launches": mesh_launches["fused_iteration"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -33,8 +33,11 @@ device result comes back through an explicit ``.cpu()``: that pull is the
 synchronisation point, so ``solve_ms`` includes the device's time.
 
 It runs on the CUDA device unless it is built with ``device="cpu"``.
-A ``mesh``, which a later slice ports, raises ``NotImplementedError``
-naming its ROADMAP item.
+With a ``mesh`` (:func:`rio_tpu_torch.parallel.make_mesh`) the full solves
+shard over it: the dense flat solve over a sharded cost (no class
+collapse), and the hierarchical solve over the object axis, composed with
+chunking above ``_HIER_CHUNK_ROWS`` rows a shard (``"+mesh_chunk"``); the
+provider's device is then the mesh's first device.
 """
 
 from __future__ import annotations
@@ -67,7 +70,13 @@ from ..ops import (
 from ..ops import prng
 from ..ops.assignment import rank_within_group
 from ..ops.sinkhorn import route_sentinel_spill
-from ..parallel.hierarchical import chunked_hierarchical_assign_timed, hierarchical_assign
+from ..parallel import shard_cost, sharded_scaling_sinkhorn, sharded_sinkhorn
+from ..parallel.hierarchical import (
+    chunked_hierarchical_assign_timed,
+    hierarchical_assign,
+    mesh_chunked_hierarchical_assign_timed,
+    sharded_hierarchical_assign,
+)
 from ..registry import ObjectId
 from ..tracing import span
 from . import ObjectPlacement, ObjectPlacementItem, sanitize_standby_row
@@ -102,9 +111,6 @@ _SOLVER_MODES = ("sinkhorn", "scaling", "greedy", "hierarchical")
 # heaviest-degree edge-touching objects win the slots, so a pathological
 # graph never turns the refine into a directory-sized dense problem.
 _AFFINITY_MAX_ROWS = 4096
-
-# What a later slice ports; the message names its ROADMAP item.
-_LATER_MESH = "mesh-sharded solves are not ported yet (ROADMAP A.11: parallel/ on torch.distributed)"
 
 
 def _next_bucket(n: int, minimum: int = 256) -> int:
@@ -777,7 +783,7 @@ class SolveStats:
     exec_ms: float = -1.0  # solve_ms minus compile_ms
     chunks: int = 0  # hierarchical chunk count (0 = not a hierarchical solve)
     chunk_ms: list = field(default_factory=list)  # per-chunk wall ms (chunked solves)
-    devices: int = 0  # devices of a hierarchical solve: 1 (0 = not one)
+    devices: int = 0  # shards of a hierarchical solve: 1 without a mesh (0 = not one)
     # Bounded record of prior completed solves (most recent last, each with
     # an empty history of its own).
     history: list = field(default_factory=list)
@@ -863,7 +869,12 @@ class TorchObjectPlacement(ObjectPlacement):
                 f'by mode="hierarchical" (got mode={mode!r})'
             )
         if mesh is not None:
-            raise NotImplementedError(_LATER_MESH)
+            # The provider's own tensors live on the mesh's first device.
+            if device is None:
+                device = mesh.home
+            elif torch.device(device).type != mesh.home.type:
+                raise ValueError(f"device {device} is not of the mesh's type ({mesh.home.type})")
+        self._mesh = mesh
         self.device = resolve_device(device)
         self._eps = eps
         self._n_iters = n_iters
@@ -1468,22 +1479,27 @@ class TorchObjectPlacement(ObjectPlacement):
         cap_np[:m_real] = np.asarray(cap, np.float32)[:m_real]
         alive_np[:m_real] = np.asarray(alive, np.float32)[:m_real]
         # The object axis pads to a power-of-two bucket (the JAX provider's
-        # bounded set of shapes); pad rows spread under the capacity
-        # marginals like real rows and are sliced off at the end.
+        # bounded set of shapes), then up to a multiple of the mesh's
+        # shards; pad rows spread under the capacity marginals like real
+        # rows and are sliced off at the end.
         n = len(keys)
-        bucket_n = _next_bucket(n)
-        # Chunks halve the rows while they exceed _HIER_CHUNK_ROWS.
+        n_shards = 1 if self._mesh is None else int(self._mesh.devices.size)
+        n_pad = -(-_next_bucket(n) // n_shards) * n_shards
+        per_dev = n_pad // n_shards
+        # Shards divide the rows first; chunks halve each shard's rows while
+        # they exceed _HIER_CHUNK_ROWS.
         n_chunks = 1
-        while bucket_n // n_chunks > _HIER_CHUNK_ROWS and (bucket_n // n_chunks) % 2 == 0:
+        while per_dev // n_chunks > _HIER_CHUNK_ROWS and (per_dev // n_chunks) % 2 == 0:
             n_chunks *= 2
-        rows_chunk = bucket_n // n_chunks
-        # Fine bucket from the fullest group's capacity share, quantized to
-        # a power of two.
+        # Each (shard, chunk) cell solves rows_cell rows; the fine bucket
+        # comes from them and the fullest group's capacity share, quantized
+        # to a power of two.
+        rows_cell = per_dev // n_chunks
         live_cap = (cap_np * alive_np).reshape(n_groups, group_size).sum(axis=1)
         share = live_cap.max() / max(live_cap.sum(), 1e-9)
-        bucket_sz = _next_bucket(max(8, int(1.3 * rows_chunk * float(share))), minimum=8)
+        bucket_sz = _next_bucket(max(8, int(1.3 * rows_cell * float(share))), minimum=8)
 
-        obj_feat = self._build_obj_feat(keys, bucket_n, node_order, cur_idx, move_cost, move_w)
+        obj_feat = self._build_obj_feat(keys, n_pad, node_order, cur_idx, move_cost, move_w)
         d_feat = obj_feat.shape[1]
         node_feat = torch.zeros((d_feat, m), dtype=torch.float32, device=dev)
         if node_order:
@@ -1496,7 +1512,7 @@ class TorchObjectPlacement(ObjectPlacement):
             node_feat[:, : len(node_order)] = nf.T
         kw = dict(
             n_groups=n_groups,
-            bucket=min(bucket_sz, rows_chunk),
+            bucket=min(bucket_sz, rows_cell),
             eps=self._eps,
             coarse_iters=self._n_iters,
             fine_iters=self._n_iters,
@@ -1512,12 +1528,26 @@ class TorchObjectPlacement(ObjectPlacement):
             "solver_iters": 2 * self._n_iters,  # coarse + fine stages
             "warm_ratio": warm_ratio,
             "chunks": n_chunks,
-            "devices": 1,
+            "devices": n_shards,
         }
         cap_t, alive_t, seed_t = self._to_device(
             cap_np, alive_np, np.asarray(coarse_g_init, np.float32)
         )
-        if n_chunks > 1:
+        if self._mesh is not None:
+            # The object axis over the mesh, each shard in n_chunks cells
+            # when it is large; the warm seed threads in and the mean over
+            # shards comes back.
+            if n_chunks > 1:
+                conv["mode_suffix"] = "+mesh_chunk"
+                res, conv["chunk_ms"] = mesh_chunked_hierarchical_assign_timed(
+                    self._mesh, obj_feat, node_feat, cap_t, alive_t, n_chunks=n_chunks,
+                    coarse_g_init=seed_t, **kw,
+                )
+            else:
+                res = sharded_hierarchical_assign(
+                    self._mesh, obj_feat, node_feat, cap_t, alive_t, coarse_g_init=seed_t, **kw
+                )
+        elif n_chunks > 1:
             res, conv["chunk_ms"] = chunked_hierarchical_assign_timed(
                 obj_feat, node_feat, cap_t, alive_t, n_chunks=n_chunks,
                 coarse_g_init=seed_t, **kw,
@@ -2039,10 +2069,11 @@ class TorchObjectPlacement(ObjectPlacement):
     def _full_solve(self, mode, n, bucket, cur_idx, load, cap, alive, plan, obj_w):
         """One full re-solve on the device: ``(assignment (bucket,), g, conv)``.
 
-        ``sinkhorn``/``scaling`` with no per-object prices run the
-        class-collapsed solve (class_quotas -> expand_class_quotas -> exact
-        repair); with prices, the dense solve over the (bucket x M) cost;
-        ``greedy`` the churn-aware waterfill."""
+        ``sinkhorn``/``scaling`` with no per-object prices and no mesh run
+        the class-collapsed solve (class_quotas -> expand_class_quotas ->
+        exact repair); otherwise the dense solve over the (bucket x M) cost,
+        sharded over the mesh if there is one; ``greedy`` the churn-aware
+        waterfill."""
         dev = self.device
         load_t, cap_t, alive_t = self._to_device(load, cap, alive)
         cap_alive = cap_t * alive_t
@@ -2068,7 +2099,7 @@ class TorchObjectPlacement(ObjectPlacement):
             return route_sentinel_spill(repaired, real, m_axis, cap_alive)
 
         base_cost = build_cost_matrix(torch.zeros_like(load_t), cap_t, alive_t)
-        if mode in ("sinkhorn", "scaling") and obj_w is None:
+        if mode in ("sinkhorn", "scaling") and obj_w is None and self._mesh is None:
             # CLASS-COLLAPSED exact solve: every object with the same current
             # seat has an identical cost row, so the (N x M) problem
             # collapses to (M x M) and N drops out of the solve. The class
@@ -2108,6 +2139,16 @@ class TorchObjectPlacement(ObjectPlacement):
             rows = torch.arange(n, device=dev)
             cost.index_put_((rows, cur_t[:n].long()), -stay, accumulate=True)
         mass = real.float()
+        if mode in ("sinkhorn", "scaling") and self._mesh is not None:
+            # The sharded solvers take no seed and report no residual: cold.
+            sharded = sharded_scaling_sinkhorn if mode == "scaling" else sharded_sinkhorn
+            f, g = sharded(
+                self._mesh, shard_cost(self._mesh, cost), mass, cap_alive,
+                eps=self._eps, n_iters=self._n_iters,
+            )
+            conv = {"solver_iters": self._n_iters, "warm_ratio": 0.0}
+            assignment = repair_exact(plan_rounded_assign(cost, f, g, self._eps))
+            return assignment, g, conv
         if mode in ("sinkhorn", "scaling"):
             dense = scaling_sinkhorn if mode == "scaling" else sinkhorn
             f, g, err = dense(
@@ -2156,8 +2197,10 @@ class TorchObjectPlacement(ObjectPlacement):
         ``stats.mode`` reports which path ran: ``"<mode>+delta"``,
         ``"<mode>+collapsed"``, ``"<mode>"`` (dense, greedy or hierarchical),
         ``"<mode>+hier_at_scale"`` (a flat rebalance above
-        ``_FLAT_REBALANCE_MAX_ROWS`` padded rows, routed through the
-        hierarchical solve) or ``"<mode>+no_capacity"``; a full solve that
+        ``_FLAT_REBALANCE_MAX_ROWS`` padded rows, a shard's on a mesh, routed
+        through the hierarchical solve) or ``"<mode>+no_capacity"``; a
+        hierarchical solve over a mesh in several chunks a shard adds
+        ``"+mesh_chunk"``; a full solve that
         the affinity refine changed adds ``"+affinity"``.
 
         The epoch is snapshotted before the solve, and the result is
@@ -2218,11 +2261,17 @@ class TorchObjectPlacement(ObjectPlacement):
                             out_d, g_d, coarse_d, _elapsed_ms(t0), f"{mode}+delta",
                             displaced, stale, conv,
                         )
-            # Above _FLAT_REBALANCE_MAX_ROWS padded rows a flat OT rebalance
-            # runs the two-level solve: hashed-identity features with the
-            # stay-put pull toward each object's current seat.
-            route_hier = mode in ("sinkhorn", "scaling") and bucket > _FLAT_REBALANCE_MAX_ROWS
-            collapse = mode in ("sinkhorn", "scaling") and obj_w is None and not route_hier
+            # Above _FLAT_REBALANCE_MAX_ROWS padded rows (a shard's, on a
+            # mesh) a flat OT rebalance runs the two-level solve:
+            # hashed-identity features with the stay-put pull toward each
+            # object's current seat. A mesh's per-shard capacity split
+            # breaks the class structure, so it never collapses.
+            flat_rows = bucket if self._mesh is None else -(-bucket // int(self._mesh.devices.size))
+            route_hier = mode in ("sinkhorn", "scaling") and flat_rows > _FLAT_REBALANCE_MAX_ROWS
+            collapse = (
+                mode in ("sinkhorn", "scaling") and obj_w is None and self._mesh is None
+                and not route_hier
+            )
             solved_as = (
                 f"{mode}+hier_at_scale"
                 if route_hier
@@ -2241,6 +2290,8 @@ class TorchObjectPlacement(ObjectPlacement):
                         move_w=obj_w if route_hier else None,
                         coarse_g_init=plan.coarse_g if plan is not None else None,
                     )
+                    # The mesh x chunk dispatch names itself in stats.mode.
+                    solved_as += conv.pop("mode_suffix", "")
                 else:
                     assignment, g, conv = self._full_solve(
                         mode, n, bucket, cur_idx, load, cap, alive, plan, obj_w

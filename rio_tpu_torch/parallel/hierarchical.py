@@ -1,6 +1,6 @@
-"""Two-level (hierarchical) optimal-transport placement on one device.
+"""Two-level (hierarchical) optimal-transport placement, on one device or a mesh.
 
-Counterpart of ``rio_tpu/parallel/hierarchical.py`` (its single-device part).
+Counterpart of ``rio_tpu/parallel/hierarchical.py``.
 The 1k-node x 10M-object tier cannot build a flat cost matrix: 10M x 1k
 float32 is 40 GB. The two-level solve replaces it with two bounded stages
 over a factorized affinity (object features x node features):
@@ -23,6 +23,20 @@ chunk shape. Eager PyTorch compiles nothing, so here both forms are the
 same host loop; :func:`chunked_hierarchical_assign_timed` adds one device
 synchronisation and a wall time per chunk. The JAX twin's buffer donation
 has no counterpart.
+
+Over a mesh (:mod:`rio_tpu_torch.parallel.mesh`) the object axis is
+embarrassingly parallel: :func:`sharded_hierarchical_assign` gives every
+shard its rows and ``1/n_shards`` of each node's capacity, and
+:func:`mesh_chunked_hierarchical_assign` splits each shard's rows into
+chunks too, every (shard, chunk) cell solving against ``cap / (n_shards *
+n_chunks)``, divided in one step. Each cell is one :func:`hierarchical_assign`
+call, so an 8-shard x 4-chunk solve equals the single-device 32-chunk
+:func:`chunked_hierarchical_assign` row for row. Overflow is summed; the
+coarse potentials and residual are the mean over shards (of each shard's
+last chunk), a valid warm seed because every cell solves the same capacity
+proportions. The reference's ``shard_map`` check switch and its cached
+jitted cell solver (``_shard_map_check_kw``, ``_mesh_cell_solver``) have no
+counterpart: nothing here is traced or compiled.
 """
 
 from __future__ import annotations
@@ -35,12 +49,16 @@ import torch
 from ..ops.prng import sqrt_rn
 from ..ops.scaling import scaling_sinkhorn
 from ..ops.sinkhorn import exact_quota_repair, plan_rounded_assign, route_sentinel_spill
+from .mesh import AXES, ROWS_SPEC, Mesh, concat, pmean, psum, replicate, shard
 
 __all__ = [
     "HierarchicalResult",
     "chunked_hierarchical_assign",
     "chunked_hierarchical_assign_timed",
     "hierarchical_assign",
+    "mesh_chunked_hierarchical_assign",
+    "mesh_chunked_hierarchical_assign_timed",
+    "sharded_hierarchical_assign",
 ]
 
 # The coarse stage scores all objects against one block of groups at a
@@ -285,5 +303,173 @@ def chunked_hierarchical_assign_timed(
     """
     return _solve_chunks(
         obj_feat, node_feat, node_capacity, alive, n_groups=n_groups,
+        n_chunks=n_chunks, coarse_g_init=coarse_g_init, timed=True, kw=kw,
+    )
+
+
+# ---------------------------------------------------------------- on a mesh
+
+
+def _mesh_inputs(mesh: Mesh, obj_feat, node_feat, node_capacity, alive, coarse_g_init, n_groups):
+    """Object rows sharded over every mesh axis; node inputs replicated.
+
+    Returns ``(rows, rep)``: cell -> row block, and cell -> ``(node_feat,
+    node_capacity, alive, seed)`` on the cell's device. A missing warm seed
+    becomes the zero seed, the same solve bit for bit (``v0 = exp(0) = 1``
+    either way, see ``ops.scaling.scaling_core``).
+    """
+    if coarse_g_init is None:
+        coarse_g_init = torch.zeros(n_groups, dtype=torch.float32)
+    seed = torch.as_tensor(coarse_g_init, dtype=torch.float32)
+    return shard(mesh, obj_feat, ROWS_SPEC), replicate(mesh, node_feat, node_capacity, alive, seed)
+
+
+def _combine(mesh: Mesh, per_cell: dict) -> HierarchicalResult:
+    """The mesh result from each cell's: rows in shard order on ``mesh.home``,
+    overflow summed, coarse potentials and residual averaged over shards."""
+    home = mesh.local_cells[0]
+    return HierarchicalResult(
+        assignment=concat(mesh, {c: r.assignment for c, r in per_cell.items()}, AXES),
+        group=concat(mesh, {c: r.group for c, r in per_cell.items()}, AXES),
+        overflow=psum(mesh, {c: r.overflow for c, r in per_cell.items()}, AXES)[home],
+        coarse_g=pmean(mesh, {c: r.coarse_g for c, r in per_cell.items()}, AXES)[home],
+        coarse_err=pmean(mesh, {c: r.coarse_err for c, r in per_cell.items()}, AXES)[home],
+    )
+
+
+def sharded_hierarchical_assign(
+    mesh: Mesh,
+    obj_feat,
+    node_feat,
+    node_capacity,
+    alive,
+    *,
+    n_groups: int,
+    coarse_g_init=None,
+    **kw,
+) -> HierarchicalResult:
+    """Data-parallel hierarchical solve: objects sharded over the mesh.
+
+    Every shard runs an independent two-level solve of its rows against
+    ``1/n_shards`` of each node's capacity (marginal normalization spreads
+    each shard's slice over the same capacity proportions), so the only
+    collectives are the overflow ``psum`` and the ``pmean`` of the coarse
+    potentials and residual into one warm seed; ``coarse_g_init`` threads
+    the previous one back in. ``obj_feat`` is a whole (N, d) tensor or a
+    :class:`~rio_tpu_torch.parallel.mesh.ShardedArray` of its rows; the
+    result holds every row, in shard order, on ``mesh.home``.
+    """
+    rows, rep = _mesh_inputs(mesh, obj_feat, node_feat, node_capacity, alive, coarse_g_init, n_groups)
+    per_cell = {}
+    for cell in sorted(rows):
+        nf, cap, al, g0 = rep[cell]
+        per_cell[cell] = hierarchical_assign(
+            rows[cell], nf, cap, al, n_groups=n_groups, coarse_g_init=g0, **kw
+        )
+    return _combine(mesh, per_cell)
+
+
+def _solve_mesh_chunks(
+    mesh, obj_feat, node_feat, node_capacity, alive, *, n_groups, n_chunks, coarse_g_init, timed, kw,
+) -> tuple[HierarchicalResult, list[float]]:
+    """The slab loop of both mesh x chunk forms; wall ms per slab when ``timed``.
+
+    Slab ``c`` is every shard's chunk-``c`` cell; each cell is one
+    :func:`hierarchical_assign` call against ``cap / (n_shards * n_chunks)``.
+    """
+    n_shards = int(mesh.devices.size)
+    n = obj_feat.shape[0]
+    assert n % (n_shards * n_chunks) == 0, (n, n_shards, n_chunks)
+    scale = n_shards * n_chunks
+    rows, rep = _mesh_inputs(mesh, obj_feat, node_feat, node_capacity, alive, coarse_g_init, n_groups)
+    cells = sorted(rows)
+    # Divide by the FULL scale in one step, once per device.
+    cap_cell, by_device = {}, {}
+    for cell in cells:
+        cap = rep[cell][1]
+        cap_cell[cell] = by_device.setdefault(str(cap.device), cap / scale)
+    cuda = sorted({str(rows[c].device) for c in cells if rows[c].device.type == "cuda"})
+
+    def sync() -> None:
+        if timed:
+            for dev in cuda:
+                torch.cuda.synchronize(dev)
+
+    # Staged inputs first, so that no pending producer drains inside slab 0's timer.
+    sync()
+    parts: dict = {c: [] for c in cells}
+    chunk_ms: list[float] = []
+    for c in range(n_chunks):
+        t0 = time.perf_counter()
+        for cell in cells:
+            step = rows[cell].shape[0] // n_chunks
+            nf, _, al, g0 = rep[cell]
+            parts[cell].append(hierarchical_assign(
+                rows[cell][c * step : (c + 1) * step], nf, cap_cell[cell], al,
+                n_groups=n_groups, coarse_g_init=g0, **kw,
+            ))
+        sync()
+        if timed:
+            chunk_ms.append(round((time.perf_counter() - t0) * 1e3, 3))
+    per_cell = {
+        cell: HierarchicalResult(
+            assignment=torch.cat([r.assignment for r in rs]),
+            group=torch.cat([r.group for r in rs]),
+            overflow=torch.stack([r.overflow for r in rs]).sum().to(torch.int32),
+            # Each shard's last chunk, as the chunked solve keeps its last.
+            coarse_g=rs[-1].coarse_g,
+            coarse_err=rs[-1].coarse_err,
+        )
+        for cell, rs in parts.items()
+    }
+    return _combine(mesh, per_cell), chunk_ms
+
+
+def mesh_chunked_hierarchical_assign(
+    mesh: Mesh,
+    obj_feat,
+    node_feat,
+    node_capacity,
+    alive,
+    *,
+    n_groups: int,
+    n_chunks: int,
+    coarse_g_init=None,
+    **kw,
+) -> HierarchicalResult:
+    """Mesh x chunk composed solve: shards AND chunks divide the rows.
+
+    Every (shard, chunk) cell solves ``N / (n_shards * n_chunks)`` rows
+    against ``1 / (n_shards * n_chunks)`` of each node's capacity. Overflow
+    is summed; the coarse potentials are the mean over shards of each
+    shard's last chunk. ``N`` must divide by ``n_shards * n_chunks``.
+    """
+    res, _ = _solve_mesh_chunks(
+        mesh, obj_feat, node_feat, node_capacity, alive, n_groups=n_groups,
+        n_chunks=n_chunks, coarse_g_init=coarse_g_init, timed=False, kw=kw,
+    )
+    return res
+
+
+def mesh_chunked_hierarchical_assign_timed(
+    mesh: Mesh,
+    obj_feat,
+    node_feat,
+    node_capacity,
+    alive,
+    *,
+    n_groups: int,
+    n_chunks: int,
+    coarse_g_init=None,
+    **kw,
+) -> tuple[HierarchicalResult, list[float]]:
+    """:func:`mesh_chunked_hierarchical_assign` with a wall time per slab.
+
+    The same loop, with a synchronisation of the mesh's CUDA devices before
+    it and after each slab (every shard's cell of one chunk). Returns
+    ``(result, chunk_ms)``; the result equals the untimed form's exactly.
+    """
+    return _solve_mesh_chunks(
+        mesh, obj_feat, node_feat, node_capacity, alive, n_groups=n_groups,
         n_chunks=n_chunks, coarse_g_init=coarse_g_init, timed=True, kw=kw,
     )

@@ -38,6 +38,8 @@ def test_importing_every_module_of_the_port_loads_no_jax():
     assert "rio_tpu_torch.object_placement.torch_placement" in result["imported"]
     assert "rio_tpu_torch.object_placement.persistent" in result["imported"]
     assert "rio_tpu_torch.parallel.hierarchical" in result["imported"]
+    assert "rio_tpu_torch.parallel.mesh" in result["imported"]
+    assert "rio_tpu_torch.parallel.multihost" in result["imported"]
     assert "rio_tpu_torch.ops.prng" in result["imported"]
     assert result["bad"] == [], f"the port loaded {result['bad']}"
 

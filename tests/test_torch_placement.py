@@ -478,28 +478,24 @@ async def _option_scenario(api, kw):
 
 
 @pytest.mark.parametrize(
-    "kw,item",
+    "kw",
     [
-        (lambda api: {"mode": "hierarchical"}, None),
-        (lambda api: {"obj_features": _key_features}, None),
-        (lambda api: {"node_features": _key_features}, None),
-        (lambda api: {"affinity_tracker": api.Tracker()}, None),
-        (lambda api: {"mesh": object()}, "A.11"),
-        (lambda api: {"mode": "hierarchical", "affinity_weight": 2.0}, None),
+        lambda api: {"mode": "hierarchical"},
+        lambda api: {"obj_features": _key_features},
+        lambda api: {"node_features": _key_features},
+        lambda api: {"affinity_tracker": api.Tracker()},
+        lambda api: {"mode": "hierarchical", "mesh": api.mesh()},
+        lambda api: {"mode": "hierarchical", "affinity_weight": 2.0},
     ],
     ids=["hierarchical", "obj_features", "node_features", "affinity_tracker", "mesh", "affinity_weight"],
 )
-def test_later_slice_options_raise(kw, item):
-    """A mesh (A.11) still raises, naming its ROADMAP item. The
-    hierarchical mode, feature hooks and a tracker (A.7, A.9) now run, and
-    so does the affinity refine (A.8): a full solve in mode
+def test_later_slice_options_raise(kw):
+    """No option of a later slice raises any more. The hierarchical mode,
+    feature hooks and a tracker (A.7, A.9), the affinity refine (A.8) and a
+    mesh (A.11: 8 shards, devices 8) each run a full solve in mode
     "hierarchical" (with the refine, "hierarchical+affinity" and its pass
     history) matching JAX."""
-    if item is None:
-        run_both(lambda api: _option_scenario(api, kw(api)))
-        return
-    with pytest.raises(NotImplementedError, match=rf"ROADMAP {item}\b"):
-        TORCH_API.make(**kw(TORCH_API))
+    run_both(lambda api: _option_scenario(api, kw(api)))
 
 
 def test_rebalance_mode_hierarchical_raises():

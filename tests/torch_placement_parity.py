@@ -14,7 +14,9 @@ step it wants compared. Each record holds what the contract compares:
 - whatever scenario-specific values a step adds (equal).
 
 :func:`snap_hier` records a hierarchical solve: ``chunks`` and ``devices``
-(equal) and each object's seat instead of the per-node counts. The port's
+(equal) and each object's seat instead of the per-node counts. ``api.mesh(n)``
+makes each package's mesh of ``n`` shards: JAX's over conftest's virtual CPU
+devices, the port's over ``["cpu"] * n``. The port's
 two-level solve rounds from float32 potentials that differ from JAX's in
 the last bits, and the padding rows of its power-of-two bucket ride the
 solve beside the real ones, so one row that lands elsewhere shifts two
@@ -31,16 +33,19 @@ import asyncio
 from collections import Counter
 from types import SimpleNamespace
 
+import jax
 import rio_tpu
 import rio_tpu.errors
 from rio_tpu.object_placement import jax_placement
 from rio_tpu.object_placement.jax_placement import JaxObjectPlacement
+from rio_tpu.parallel import make_mesh as jax_make_mesh
 
 import rio_tpu_torch.errors
 import rio_tpu_torch.object_placement as torch_op
 import rio_tpu_torch.registry
 from rio_tpu_torch.object_placement import torch_placement
 from rio_tpu_torch.object_placement.torch_placement import TorchObjectPlacement
+from rio_tpu_torch.parallel import make_mesh as torch_make_mesh
 
 RESIDUAL_TOL = 1e-4
 ROW_AGREEMENT = 0.99
@@ -50,6 +55,8 @@ JAX_API = SimpleNamespace(
     cls=JaxObjectPlacement,
     module=jax_placement,
     make=lambda **kw: JaxObjectPlacement(**kw),
+    # conftest's 8 virtual CPU devices, (4, 2) unless obj_axis says otherwise.
+    mesh=lambda n=8, **kw: jax_make_mesh(jax.devices()[:n], **kw),
     Tracker=jax_placement.AffinityTracker,
     ObjectId=rio_tpu.ObjectId,
     Item=rio_tpu.ObjectPlacementItem,
@@ -60,6 +67,7 @@ TORCH_API = SimpleNamespace(
     cls=TorchObjectPlacement,
     module=torch_placement,
     make=lambda **kw: TorchObjectPlacement(device="cpu", **kw),
+    mesh=lambda n=8, **kw: torch_make_mesh(["cpu"] * n, **kw),
     Tracker=torch_op.AffinityTracker,
     ObjectId=rio_tpu_torch.registry.ObjectId,
     Item=torch_op.ObjectPlacementItem,

@@ -155,6 +155,33 @@ Phases, each printing one JSON line:
      bounds; it prints the phase-2 transport-cost ratio (<= 1.12).
 
    Then ``mesh_times``.
+17. the ``bench`` group: ``rio_tpu_torch.bench``'s tiers (``bench.py``'s device tiers) at
+   the reference's sizes, each line holding the tier's result (with its device and power
+   limit), its launch counts of both kernels and its peak device memory:
+
+   - ``bench_solve``: the scaling kernel against its plain twin at 1,048,576 x 256
+     bfloat16, one iteration, rtol 1e-4, and its time there; then ``solve_rate`` at
+     1,048,576 x 1,024 (30 iterations) and the row-3 extra at 1,048,576 x 256 (15): every
+     node at the fair load, mean cost < 0.25 at 1,024 nodes and < 0.5 (random placement)
+     at 256, the kernel launched 30 (15) times for each solve the tier issued;
+   - ``bench_greedy``: ``greedy_rate`` on the solve tier's inputs, max load within 2 of fair;
+   - ``bench_collapsed``: ``collapsed_rate`` (30 of 1,024 nodes dead), ``warm_assign_rate``
+     (65,536) and ``incremental_rate``: dead nodes empty, the largest load at the ceiling
+     of the fair share, moved >= displaced, no kernel launch;
+   - ``bench_delta``: ``delta_churn_rate`` at 1,048,576 objects x 64 nodes: no undisplaced
+     move, cost ratio <= 1 + 1e-6, the delta moved exactly the displaced;
+   - ``bench_hier``: ``hier_rate``, BASELINE row 5 in 16 chunks of 655,360 rows: no
+     overflow, loads within 10% of fair, no kernel launch;
+   - ``bench_headline``: the reference's last line over these results.
+18. ``profile``: ``torch.profiler`` (CPU and CUDA activities) over a short window of the
+   main path (3 steps), the log-domain path (1 step), ``collapsed_decide`` at 1,048,576 x
+   1,024, one ``hierarchical_assign`` chunk of 524,288 rows (``hier_assign``'s chunk 0) and
+   a warm directory full rebalance after 30 deaths: each path's window ms (beside the
+   same call's ms without the profiler, but for the rebalance), device busy ms (the union
+   of its kernel, memcpy and memset spans), idle share, top 5 device operations and 3
+   longest idle gaps with the host span open across each. The main-path trace must
+   hold 90 launches of ``scaling_rows_kernel`` and the log-domain trace 30 of
+   ``logdomain_rows_kernel``: a trace with no device event fails the phase.
 
 Then the ``kernels`` line and, last, ``{"ok": true, "device": {...}}``. Any failed
 check raises, so the script exits non-zero and prints no result. Without a CUDA
@@ -219,6 +246,15 @@ PERS_FLUSH_INTERVAL = 3600.0
 MESH_SHARDS, MESH_CHUNKS, MESH_NCCL_ROWS = 8, 4, 1 << 20
 TOL_MESH = 1e-4  # sharded potentials against the single-device solve (__graft_entry__.py:188-193)
 MESH_ROW_MISMATCH = 0.02  # sharded rows against the single-device rounding (:198)
+# The bench group: bench.py's device tiers at its sizes (the solve tier and greedy at
+# 1,048,576 x 1,024; the row-3 extra at 1,048,576 x 256, 15 iterations; the warm batch
+# 65,536; the delta A/B at 64 nodes; BASELINE row 5 in 16 chunks of 655,360, 32 groups).
+BENCH_OBJ, BENCH_ROW3_NODES, BENCH_ROW3_ITERS = 1 << 20, 256, 15
+BENCH_WARM_BATCH, BENCH_DELTA_NODES = 65_536, 64
+BENCH_HIER_OBJ, BENCH_HIER_GROUPS, BENCH_HIER_CHUNK = 10_485_760, 32, 655_360
+RANDOM_MEAN_COST = 0.5  # a random placement's mean cost on U[0, 1) costs
+# The profile phase: main-path steps in its window.
+PROFILE_MAIN_STEPS = 3
 
 
 def emit(phase: str, **fields) -> None:
@@ -304,14 +340,19 @@ def _reset_launches() -> None:
     fused_iteration.launches = 0
 
 
-def _read_launches(what: str) -> dict:
-    """Both kernels' launch counts since :func:`_reset_launches`; the
-    directory and hierarchical paths reach neither kernel, so each must be 0."""
+def _launches() -> dict:
+    """Both kernels' launch counts since :func:`_reset_launches`."""
     from rio_tpu_torch.ops import scaling as S
     from rio_tpu_torch.ops.pallas_sinkhorn import fused_iteration
 
-    launches = {"fused_scaling_iteration": S.fused_scaling_iteration.launches,
-                "fused_iteration": fused_iteration.launches}
+    return {"fused_scaling_iteration": S.fused_scaling_iteration.launches,
+            "fused_iteration": fused_iteration.launches}
+
+
+def _read_launches(what: str) -> dict:
+    """:func:`_launches`; the directory and hierarchical paths reach neither
+    kernel, so each must be 0."""
+    launches = _launches()
     check(sum(launches.values()) == 0, f"{what} launched a kernel: {launches}")
     return launches
 
@@ -1414,6 +1455,221 @@ async def mesh_phases(dev, card: dict, hier_assignment) -> tuple[dict, dict]:
     return out, launches_total
 
 
+def run_tier(fn, what: str, kernel_ok: bool = False):
+    """Run one bench tier with both kernel counts at 0: its result, the counts
+    read just after and its peak device memory. Unless ``kernel_ok``, a tier
+    that launched a kernel fails."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    result = fn()
+    torch.cuda.synchronize()
+    launches = _launches() if kernel_ok else _read_launches(what)
+    return result, launches, torch.cuda.max_memory_allocated()
+
+
+def bench_phases(dev, card: dict) -> int:
+    """The ``bench`` group (phase 17); returns the scaling kernel's launches in it."""
+    import math
+
+    import torch
+
+    from rio_tpu_torch import bench as B
+    from rio_tpu_torch.ops import scaling as S
+
+    n = BENCH_OBJ
+    detail: dict = {}
+
+    # -- bench_solve -------------------------------------------------------------
+    # The scaling kernel against its twin at the row-3 width before any timing.
+    m3 = BENCH_ROW3_NODES
+    cost3 = B.tier_inputs(n, m3)
+    c3 = torch.from_numpy(cost3).to(dev)
+    a, b, K, _ = S.scaling_kernel(
+        c3, torch.ones(n, device=dev), torch.ones(m3, device=dev), eps=EPS,
+        kernel_dtype=torch.bfloat16,
+    )
+    v = torch.ones(m3, device=dev)
+    u_k, v_k = S.fused_scaling_iteration(K, a, b, v)
+    torch.cuda.synchronize()
+    u_p, v_p = S.fused_scaling_iteration_ref(K, a, b, v)
+    eu, ev = max_rel_err(u_k, u_p), max_rel_err(v_k, v_p)
+    max_abs = max(float((u_k - u_p).abs().max()), float((v_k - v_p).abs().max()))
+    check(eu <= RTOL_KERNEL and ev <= RTOL_KERNEL, f"kernel at {n}x{m3}: {eu}, {ev}")
+    kernel_ms = cuda_median_ms(lambda: S.fused_scaling_iteration(K, a, b, v), reps=20, batch=10)
+    bytes_ms = (n * m3 * 2 + 4 * (n + 2 * m3) + 4 * (n + m3)) / HBM_BYTES_PER_S * 1e3
+    ops_ms = 4 * n * m3 / F32_FLOPS_PER_S * 1e3
+    kernel_256 = {"n": n, "m": m3, "rtol": RTOL_KERNEL, "u_rel": eu, "v_rel": ev,
+                  "max_abs_err": max_abs, "ms_per_iter": kernel_ms,
+                  "bound_ms": max(bytes_ms, ops_ms),
+                  "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    del c3, a, b, K, u_k, v_k, u_p, v_p
+
+    cost = B.tier_inputs(n, N_NODES)
+    solve, launches, peak = run_tier(
+        lambda: B.solve_rate(n, n_nodes=N_NODES, cost=cost, device=dev), "solve_rate", kernel_ok=True
+    )
+    want = {"fused_scaling_iteration": N_ITERS * solve["solves"], "fused_iteration": 0}
+    check(launches == want, f"solve_rate launches {launches}, want {want}")
+    kernel_launches = launches["fused_scaling_iteration"]
+    check(solve["max_load"] == solve["fair_load"], f"solve_rate max load {solve['max_load']}")
+    check(solve["mean_cost"] < 0.25, f"solve_rate mean cost {solve['mean_cost']}")
+    row3, launches3, peak3 = run_tier(
+        lambda: B.solve_rate(n, n_nodes=m3, n_iters=BENCH_ROW3_ITERS, cost=cost3, device=dev),
+        "row 3", kernel_ok=True,
+    )
+    want3 = {"fused_scaling_iteration": BENCH_ROW3_ITERS * row3["solves"], "fused_iteration": 0}
+    check(launches3 == want3, f"row-3 launches {launches3}, want {want3}")
+    kernel_launches += launches3["fused_scaling_iteration"]
+    check(row3["max_load"] == row3["fair_load"], f"row-3 max load {row3['max_load']}")
+    check(row3["mean_cost"] < RANDOM_MEAN_COST, f"row-3 mean cost {row3['mean_cost']}")
+    del cost3
+    detail["solve_tier"], detail["baseline_row3_1m_x_256"] = solve, row3
+    emit("bench_solve", **card, kernel_256=kernel_256, solve_tier=solve, launches=launches,
+         peak_bytes=peak, baseline_row3_1m_x_256=row3, row3_launches=launches3,
+         row3_peak_bytes=peak3)
+
+    # -- bench_greedy ------------------------------------------------------------
+    greedy, launches, peak = run_tier(lambda: B.greedy_rate(n, N_NODES, cost=cost, device=dev), "greedy_rate")
+    check(greedy["max_load"] - greedy["fair_load"] <= 2, f"greedy max load {greedy['max_load']}")
+    del cost
+    detail["greedy"] = greedy
+    emit("bench_greedy", **card, greedy=greedy, launches=launches, peak_bytes=peak)
+
+    # -- bench_collapsed ---------------------------------------------------------
+    def churn_checks(r: dict, what: str) -> None:
+        ceiling = math.ceil(r["n_obj"] / (N_NODES - r["dead_nodes"]))
+        check(r["dead_load"] == 0, f"{what}: {r['dead_load']} objects on dead nodes")
+        check(r["max_load"] == ceiling, f"{what}: max load {r['max_load']}, want {ceiling}")
+        check(r["moved"] >= r["displaced"], f"{what}: moved {r['moved']} < displaced {r['displaced']}")
+
+    collapsed, launches, peak = run_tier(lambda: B.collapsed_rate(n, N_NODES, device=dev), "collapsed_rate")
+    churn_checks(collapsed, "collapsed_rate")
+    warm, warm_launches, warm_peak = run_tier(
+        lambda: B.warm_assign_rate(BENCH_WARM_BATCH, N_NODES, device=dev), "warm_assign_rate"
+    )
+    check(warm["max_load"] - warm["fair_load"] <= 1, f"warm batch max load {warm['max_load']}")
+    incremental, inc_launches, inc_peak = run_tier(
+        lambda: B.incremental_rate(n, BENCH_WARM_BATCH, N_NODES, device=dev), "incremental_rate"
+    )
+    churn_checks(incremental, "incremental_rate")
+    detail.update(collapsed_tier=collapsed, warm_assign=warm, incremental=incremental)
+    emit("bench_collapsed", **card, collapsed_tier=collapsed, launches=launches, peak_bytes=peak,
+         warm_assign=warm, warm_launches=warm_launches, warm_peak_bytes=warm_peak,
+         incremental=incremental, incremental_launches=inc_launches, incremental_peak_bytes=inc_peak)
+
+    # -- bench_delta -------------------------------------------------------------
+    delta, launches, peak = run_tier(
+        lambda: B.delta_churn_rate(n, BENCH_DELTA_NODES, device=dev), "delta_churn_rate"
+    )
+    check(delta["undisplaced_moves"] == 0, f"delta moved {delta['undisplaced_moves']} undisplaced")
+    check(delta["cost_ratio"] <= 1 + 1e-6, f"delta cost ratio {delta['cost_ratio']}")
+    check(delta["delta_moved"] == delta["displaced"],
+          f"delta moved {delta['delta_moved']}, displaced {delta['displaced']}")
+    detail["delta_tier"] = delta
+    emit("bench_delta", **card, delta_tier=delta, launches=launches, peak_bytes=peak)
+
+    # -- bench_hier --------------------------------------------------------------
+    hier, launches, peak = run_tier(
+        lambda: B.hier_rate(BENCH_HIER_OBJ, N_NODES, BENCH_HIER_GROUPS,
+                            chunk_rows=BENCH_HIER_CHUNK, device=dev),
+        "hier_rate",
+    )
+    fair = hier["fair_load"]
+    check(hier["overflow"] == 0, f"hier_rate overflow {hier['overflow']}")
+    check(hier["n_chunks"] == BENCH_HIER_OBJ // BENCH_HIER_CHUNK, f"hier_rate chunks {hier['n_chunks']}")
+    check((1 - HIER_LOAD_SLACK) * fair <= hier["min_load"] and hier["max_load"] <= (1 + HIER_LOAD_SLACK) * fair,
+          f"hier_rate loads {hier['min_load']}..{hier['max_load']}, fair {fair}")
+    detail["baseline_row5_hier"] = hier
+    emit("bench_hier", **card, baseline_row5_hier=hier, launches=launches, peak_bytes=peak)
+
+    emit("bench_headline", **card, **B.headline(detail, B.sqlite_baseline_rate()))
+    return kernel_launches
+
+
+async def profile_phase(dev, card: dict) -> None:
+    """The ``profile`` phase (18): the device's idle share on five paths."""
+    import numpy as np
+    import torch
+
+    from rio_tpu_torch import bench as B
+    from rio_tpu_torch.entry import logdomain_placement_step, make_problem, placement_step
+    from rio_tpu_torch.object_placement.torch_placement import TorchObjectPlacement
+    from rio_tpu_torch.parallel.hierarchical import hierarchical_assign
+    from rio_tpu_torch.profiling import DeviceWindow
+    from rio_tpu_torch.registry import ObjectId
+
+    paths: dict = {}
+
+    def profiled(name: str, fn) -> DeviceWindow:
+        """A warm call, one timed without the profiler (its cost shows beside
+        the window), then the profiled window."""
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        unprofiled_ms = (time.perf_counter() - t0) * 1e3
+        with DeviceWindow(f"chip_smoke.profile.{name}") as window:
+            fn()
+        paths[name] = {**window.report, "unprofiled_ms": unprofiled_ms}
+        return window
+
+    cost, mass, cap = make_problem(N_OBJ, N_NODES, seed=0, device=dev)
+
+    def main_steps():
+        for _ in range(PROFILE_MAIN_STEPS):
+            placement_step(cost, mass, cap, eps=EPS, n_iters=N_ITERS, chunk=CHUNK, device=dev)
+
+    w = profiled("main_path", main_steps)
+    launches = w.count("scaling_rows_kernel")
+    check(launches == N_ITERS * PROFILE_MAIN_STEPS,
+          f"the main-path trace holds {launches} scaling_rows_kernel spans, "
+          f"want {N_ITERS * PROFILE_MAIN_STEPS}")
+    paths["main_path"].update(steps=PROFILE_MAIN_STEPS, scaling_rows_kernel=launches)
+
+    w = profiled("logdomain_path", lambda: logdomain_placement_step(
+        cost, mass, cap, eps=EPS, n_iters=N_ITERS, chunk=CHUNK, device=dev))
+    launches = w.count("logdomain_rows_kernel")
+    check(launches == N_ITERS, f"the log-domain trace holds {launches} logdomain_rows_kernel spans")
+    paths["logdomain_path"].update(steps=1, logdomain_rows_kernel=launches)
+    del cost, mass, cap
+    torch.cuda.empty_cache()
+
+    cur = torch.from_numpy(
+        np.random.default_rng(2).integers(0, N_NODES, DIR_OBJ, dtype=np.int32)).to(dev)
+    ones = torch.ones(N_NODES, device=dev)
+    alive = ones.clone()
+    alive[:DIR_KILL] = 0.0
+    profiled("collapsed", lambda: B.collapsed_decide(cur, ones, alive))
+    del cur
+
+    obj, node, hcap, halive, kw, n_chunks = hier_assign_inputs(dev, hier_dead())
+    rows = obj.shape[0] // n_chunks
+    profiled("hier_chunk", lambda: hierarchical_assign(obj[:rows], node, hcap / n_chunks, halive, **kw))
+    paths["hier_chunk"].update(rows=rows, n_groups=kw["n_groups"])
+    del obj, node
+    torch.cuda.empty_cache()
+
+    addrs = [f"10.{i // 256}.{i % 256}.1:5000" for i in range(DIR_NODES)]
+    killed = set(int(i) for i in np.random.default_rng(0).choice(DIR_NODES, DIR_KILL, replace=False))
+    p = TorchObjectPlacement(eps=EPS, n_iters=N_ITERS, mode="sinkhorn", move_cost=DIR_MOVE_COST,
+                             node_axis_size=DIR_NODES, device=dev)
+    p.sync_members([_Member(a, True) for a in addrs])
+    await p.assign_batch([ObjectId("Prof", str(i)) for i in range(DIR_OBJ)])
+    await p.rebalance(delta=False)  # the first solve: the next one starts warm
+    p.sync_members([_Member(a, i not in killed) for i, a in enumerate(addrs)])
+    torch.cuda.synchronize()
+    with DeviceWindow("chip_smoke.profile.directory_full") as w:
+        moved = await p.rebalance(delta=False)
+    check(p.stats.mode == "sinkhorn+collapsed", f"profiled rebalance ran {p.stats.mode}")
+    paths["directory_full"] = {**w.report, "mode": p.stats.mode, "moved": moved,
+                               "solve_ms": p.stats.solve_ms, "apply_ms": p.stats.apply_ms}
+    emit("profile", **card, paths=paths)
+
+
 def main() -> int:
     import torch
 
@@ -1805,6 +2061,14 @@ def main() -> int:
     mesh_times, mesh_launches = asyncio.run(mesh_phases(dev, card, keep.pop("hier_assign")))
     emit("mesh_times", **card, **mesh_times)
 
+    # -- 17. bench.py's device tiers -----------------------------------------------
+    torch.cuda.empty_cache()
+    bench_launches = bench_phases(dev, card)
+
+    # -- 18. the device's idle share ---------------------------------------------
+    torch.cuda.empty_cache()
+    asyncio.run(profile_phase(dev, card))
+
     print(json.dumps({"kernels": [{
         "name": "fused_scaling_iteration",
         "route": "cuda",
@@ -1818,6 +2082,7 @@ def main() -> int:
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": library_ms,
         "mesh_launches": mesh_launches["fused_scaling_iteration"],
+        "bench_launches": bench_launches,
     }, {
         "name": "fused_iteration",
         "route": "cuda",
@@ -1831,6 +2096,7 @@ def main() -> int:
         "bound_by": "bytes" if ld_bytes_ms >= ld_exp_ms else "operations",
         "library_ms": ld_library_ms,
         "mesh_launches": mesh_launches["fused_iteration"],
+        "bench_launches": 0,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -41,6 +41,8 @@ def test_importing_every_module_of_the_port_loads_no_jax():
     assert "rio_tpu_torch.parallel.mesh" in result["imported"]
     assert "rio_tpu_torch.parallel.multihost" in result["imported"]
     assert "rio_tpu_torch.ops.prng" in result["imported"]
+    assert "rio_tpu_torch.bench" in result["imported"]
+    assert "rio_tpu_torch.profiling" in result["imported"]
     assert result["bad"] == [], f"the port loaded {result['bad']}"
 
 
@@ -65,3 +67,9 @@ def _imported_roots(path):
 def test_port_source_imports_no_jax(path):
     assert path.exists()
     assert not FORBIDDEN & set(_imported_roots(path))
+
+
+def test_the_port_bench_imports_nothing_of_the_reference_bench():
+    # bench.py at the root is the reference; the port keeps its own copies.
+    roots = set(_imported_roots(ROOT / "rio_tpu_torch" / "bench.py"))
+    assert "bench" not in roots and not FORBIDDEN & roots

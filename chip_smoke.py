@@ -155,12 +155,41 @@ Phases, each printing one JSON line:
      bounds; it prints the phase-2 transport-cost ratio (<= 1.12).
 
    Then ``mesh_times``.
-17. the ``bench`` group: ``rio_tpu_torch.bench``'s tiers (``bench.py``'s device tiers) at
+17. the ``live`` group: the port's own actor runtime (``Server``, ``Client``, gossip
+   membership, the ``PlacementDaemon``) on loopback over ``TorchObjectPlacement`` on the
+   card, each phase with both kernels' launch counts (0: the directory reaches neither
+   kernel, as the reference's does) and whether the C++ envelope codec served
+   (``native``):
+
+   - ``live_row2``: BASELINE row 2 (``BASELINE.json`` configs[1]), ``bench.row2_torch_provider_live``:
+     8 servers, 100,000 echo objects allocated through the servers' self-assign (host
+     only), hops over 4,000 sampled ids: the directory holds 100,000 rows on ``cuda``,
+     the directory resolver takes 1.0 hop (p99 1), the reference's random policy p99 2
+     and mean > 1.5; its allocation wall and rate; then ``bench.live_route_hops`` (8 x
+     2,048 on ``LocalObjectPlacement``) for the headline;
+   - ``live_churn``: 8 servers with gossip (a death after 3 failed 2 s probes within
+     10 s) and ``placement_daemon=True`` (poll 0.1 s, debounce 0.05 s), 100,000 echo
+     objects and 8,192 durable counters (one acknowledged ``Add`` each, state in a shared
+     ``LocalState``), every server with ``load_monitor=False`` (they share one event loop,
+     whose lag would enter every node's load; the line prints ``load_monitor``); the
+     server with the most rows exits; a daemon's rebalance completes
+     on the card (``auto`` is ``sinkhorn`` on CUDA): no row on the dead node,
+     ``displaced <= moved <= displaced + n/4`` (moved: objects whose seat changed; the
+     daemons' planned moves under the same upper bound), every counter reads back its
+     acknowledged value from a live node, 4,000 sampled echo ids take 1.0 hop; it prints
+     ``stats.mode``, ``solve_ms``, ``apply_ms``, moved, displaced, every solve since the
+     kill and the wall from the kill to the completed rebalance;
+   - ``live_demo``: ``rio_tpu_torch.examples.tpu_placement`` on the card (5 servers,
+     hierarchical provider with an ``AffinityTracker``, 200 objects, one server killed):
+     a completed daemon re-solve in ``hierarchical`` mode that was not discarded, the
+     tracker holding all 200 objects, every object answering afterwards.
+18. the ``bench`` group: ``rio_tpu_torch.bench``'s tiers (``bench.py``'s device tiers) at
    the reference's sizes, each line holding the tier's result (with its device and power
    limit), its launch counts of both kernels and its peak device memory:
 
    - ``bench_solve``: the scaling kernel against its plain twin at 1,048,576 x 256
-     bfloat16, one iteration, rtol 1e-4, and its time there; then ``solve_rate`` at
+     bfloat16, one iteration, rtol 1e-4, and its time there beside the twin's and
+     ``torch.mv`` both ways; then ``solve_rate`` at
      1,048,576 x 1,024 (30 iterations) and the row-3 extra at 1,048,576 x 256 (15): every
      node at the fair load, mean cost < 0.25 at 1,024 nodes and < 0.5 (random placement)
      at 256, the kernel launched 30 (15) times for each solve the tier issued;
@@ -172,8 +201,9 @@ Phases, each printing one JSON line:
      move, cost ratio <= 1 + 1e-6, the delta moved exactly the displaced;
    - ``bench_hier``: ``hier_rate``, BASELINE row 5 in 16 chunks of 655,360 rows: no
      overflow, loads within 10% of fair, no kernel launch;
-   - ``bench_headline``: the reference's last line over these results.
-18. ``profile``: ``torch.profiler`` (CPU and CUDA activities) over a short window of the
+   - ``bench_headline``: the reference's last line over these results and the live
+     group's route hops (so it reads "measured p99 hops").
+19. ``profile``: ``torch.profiler`` (CPU and CUDA activities) over a short window of the
    main path (3 steps), the log-domain path (1 step), ``collapsed_decide`` at 1,048,576 x
    1,024, one ``hierarchical_assign`` chunk of 524,288 rows (``hier_assign``'s chunk 0) and
    a warm directory full rebalance after 30 deaths: each path's window ms (beside the
@@ -253,6 +283,11 @@ BENCH_OBJ, BENCH_ROW3_NODES, BENCH_ROW3_ITERS = 1 << 20, 256, 15
 BENCH_WARM_BATCH, BENCH_DELTA_NODES = 65_536, 64
 BENCH_HIER_OBJ, BENCH_HIER_GROUPS, BENCH_HIER_CHUNK = 10_485_760, 32, 655_360
 RANDOM_MEAN_COST = 0.5  # a random placement's mean cost on U[0, 1) costs
+# The live group: BASELINE.json configs[1] (8 nodes, 100,000 objects; bench.py's
+# row2_jax_provider_live samples 4,000 ids), 8,192 durable counters beside the echo
+# population in the churn phase, and the churn bound of
+# tests/test_torch_placement_server.py (moved <= displaced + n/4).
+LIVE_SERVERS, LIVE_OBJ, LIVE_SAMPLE, LIVE_COUNTERS = 8, 100_000, 4_000, 8_192
 # The profile phase: main-path steps in its window.
 PROFILE_MAIN_STEPS = 3
 
@@ -1455,6 +1490,69 @@ async def mesh_phases(dev, card: dict, hier_assignment) -> tuple[dict, dict]:
     return out, launches_total
 
 
+def live_phases(dev, card: dict) -> dict:
+    """The ``live`` group (phase 17): the port's own runtime on the card's directory.
+
+    Returns ``{"route_hops": ...}`` for the bench group's headline.
+    """
+    from rio_tpu_torch import bench as B
+    from rio_tpu_torch.examples.tpu_placement import N_OBJECTS as DEMO_OBJ
+    from rio_tpu_torch.examples.tpu_placement import run_demo
+    from rio_tpu_torch.object_placement.torch_placement import TorchObjectPlacement
+    from rio_tpu_torch.utils.churn_live import measure_daemon_churn
+
+    # -- live_row2 ---------------------------------------------------------------
+    _reset_launches()
+    row2 = B.row2_torch_provider_live(
+        dev, n_servers=LIVE_SERVERS, n_objects=LIVE_OBJ, sample_size=LIVE_SAMPLE
+    )
+    launches = _read_launches("live_row2")
+    hops = B.live_route_hops()  # bench.py's 8 x 2,048 on LocalObjectPlacement
+    ours, ref = row2["ours"], row2["reference"]
+    check(row2["directory_device"].startswith("cuda"), f"row 2 directory on {row2['directory_device']}")
+    check(row2["count"] == LIVE_OBJ, f"row 2 directory holds {row2['count']} rows")
+    check(ours["n"] == ref["n"] == LIVE_SAMPLE, f"row 2 sampled {ours['n']}, {ref['n']}")
+    check(ours["mean"] == 1.0 and ours["p99"] == 1.0, f"row 2 directory hops {ours}")
+    check(ref["p99"] == 2.0 and ref["mean"] > 1.5, f"row 2 random-policy hops {ref}")
+    check(hops["ours"]["p99"] == 1.0 and hops["reference"]["p99"] == 2.0, f"route hops {hops}")
+    emit("live_row2", **card, row2_torch_provider=row2, route_hops=hops, launches=launches)
+
+    # -- live_churn --------------------------------------------------------------
+    placement = TorchObjectPlacement(move_cost=DIR_MOVE_COST, device=dev)
+    check(placement.device.type == "cuda", f"churn directory on {placement.device}")
+    check(placement._solver_mode() == "sinkhorn", f"auto resolves to {placement._solver_mode()}")
+    _reset_launches()
+    churn = asyncio.run(measure_daemon_churn(
+        placement, n_servers=LIVE_SERVERS, n_echo=LIVE_OBJ, n_counters=LIVE_COUNTERS,
+        sample_size=LIVE_SAMPLE,
+    ))
+    launches = _read_launches("live_churn")
+    n = LIVE_OBJ + LIVE_COUNTERS
+    st = churn["stats"]
+    check(churn["n_objects"] == n and placement.count() == n, f"churn directory holds {placement.count()}")
+    check(churn["dead_rows"] == 0, f"{churn['dead_rows']} rows left on the dead node")
+    check(churn["displaced"] <= churn["moved"] <= churn["displaced"] + n // 4,
+          f"moved {churn['moved']}, displaced {churn['displaced']}")
+    check(churn["planned_moves"] <= churn["displaced"] + n // 4,
+          f"the daemons planned {churn['planned_moves']} moves, displaced {churn['displaced']}")
+    check(st["mode"].startswith("sinkhorn") and not st["discarded"], f"churn solve {st}")
+    check(churn["counters"] == LIVE_COUNTERS and churn["lost"] == [], f"counters lost: {churn['lost']}")
+    check(churn["hops"]["mean"] == 1.0 and churn["hops"]["n"] == LIVE_SAMPLE, f"hops after churn {churn['hops']}")
+    emit("live_churn", **card, directory_device=str(placement.device), **churn, launches=launches)
+
+    # -- live_demo ---------------------------------------------------------------
+    _reset_launches()
+    demo = asyncio.run(run_demo(dev, verbose=False))
+    launches = _read_launches("live_demo")
+    check(demo["device"].startswith("cuda"), f"demo directory on {demo['device']}")
+    check(demo["mode"].startswith("hierarchical") and not demo["discarded"] and demo["n_objects"],
+          f"demo re-solve {demo}")
+    check(demo["observed"] == DEMO_OBJ, f"the tracker observed {demo['observed']} objects")
+    check(demo["reachable"] == DEMO_OBJ and demo["redirects"] == 0, f"demo {demo}")
+    emit("live_demo", **card, **demo, launches=launches)
+    return {"route_hops": hops}
+
+
 def run_tier(fn, what: str, kernel_ok: bool = False):
     """Run one bench tier with both kernel counts at 0: its result, the counts
     read just after and its peak device memory. Unless ``kernel_ok``, a tier
@@ -1470,8 +1568,10 @@ def run_tier(fn, what: str, kernel_ok: bool = False):
     return result, launches, torch.cuda.max_memory_allocated()
 
 
-def bench_phases(dev, card: dict) -> int:
-    """The ``bench`` group (phase 17); returns the scaling kernel's launches in it."""
+def bench_phases(dev, card: dict, live: dict | None = None) -> int:
+    """The ``bench`` group (phase 18); returns the scaling kernel's launches in it.
+
+    ``live`` holds the live group's ``route_hops`` for the headline."""
     import math
 
     import torch
@@ -1499,13 +1599,17 @@ def bench_phases(dev, card: dict) -> int:
     max_abs = max(float((u_k - u_p).abs().max()), float((v_k - v_p).abs().max()))
     check(eu <= RTOL_KERNEL and ev <= RTOL_KERNEL, f"kernel at {n}x{m3}: {eu}, {ev}")
     kernel_ms = cuda_median_ms(lambda: S.fused_scaling_iteration(K, a, b, v), reps=20, batch=10)
+    plain_ms = cuda_median_ms(lambda: S.fused_scaling_iteration_ref(K, a, b, v), reps=10, batch=3)
+    # The library yardstick at this width too: torch.mv both ways in bfloat16.
+    v16, u16 = v.to(torch.bfloat16), torch.full((n,), 1.0 / n, device=dev, dtype=torch.bfloat16)
+    library_ms = cuda_median_ms(lambda: (torch.mv(K, v16), torch.mv(K.t(), u16)), reps=10, batch=10)
     bytes_ms = (n * m3 * 2 + 4 * (n + 2 * m3) + 4 * (n + m3)) / HBM_BYTES_PER_S * 1e3
     ops_ms = 4 * n * m3 / F32_FLOPS_PER_S * 1e3
     kernel_256 = {"n": n, "m": m3, "rtol": RTOL_KERNEL, "u_rel": eu, "v_rel": ev,
-                  "max_abs_err": max_abs, "ms_per_iter": kernel_ms,
-                  "bound_ms": max(bytes_ms, ops_ms),
+                  "max_abs_err": max_abs, "ms_per_iter": kernel_ms, "plain_ms_per_iter": plain_ms,
+                  "library_ms": library_ms, "bound_ms": max(bytes_ms, ops_ms),
                   "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
-    del c3, a, b, K, u_k, v_k, u_p, v_p
+    del c3, a, b, K, u_k, v_k, u_p, v_p, v16, u16
 
     cost = B.tier_inputs(n, N_NODES)
     solve, launches, peak = run_tier(
@@ -1585,12 +1689,13 @@ def bench_phases(dev, card: dict) -> int:
     detail["baseline_row5_hier"] = hier
     emit("bench_hier", **card, baseline_row5_hier=hier, launches=launches, peak_bytes=peak)
 
+    detail.update(live or {})
     emit("bench_headline", **card, **B.headline(detail, B.sqlite_baseline_rate()))
     return kernel_launches
 
 
 async def profile_phase(dev, card: dict) -> None:
-    """The ``profile`` phase (18): the device's idle share on five paths."""
+    """The ``profile`` phase (19): the device's idle share on five paths."""
     import numpy as np
     import torch
 
@@ -2061,11 +2166,15 @@ def main() -> int:
     mesh_times, mesh_launches = asyncio.run(mesh_phases(dev, card, keep.pop("hier_assign")))
     emit("mesh_times", **card, **mesh_times)
 
-    # -- 17. bench.py's device tiers -----------------------------------------------
+    # -- 17. the port's runtime: a live cluster on the card's directory ----------------
     torch.cuda.empty_cache()
-    bench_launches = bench_phases(dev, card)
+    live = live_phases(dev, card)
 
-    # -- 18. the device's idle share ---------------------------------------------
+    # -- 18. bench.py's device tiers -----------------------------------------------
+    torch.cuda.empty_cache()
+    bench_launches = bench_phases(dev, card, live)
+
+    # -- 19. the device's idle share ---------------------------------------------
     torch.cuda.empty_cache()
     asyncio.run(profile_phase(dev, card))
 

@@ -1,6 +1,6 @@
-"""The device tiers of ``bench.py`` on the port: placements/sec on one CUDA card.
+"""The tiers of ``bench.py`` on the port: placements/sec on one CUDA card, route hops live.
 
-    python -m rio_tpu_torch.bench [--tier N] [--collapsed] [--delta] [--hier] [--out PATH]
+    python -m rio_tpu_torch.bench [--tier N] [--collapsed] [--delta] [--hier] [--live] [--out PATH]
 
 Each tier is its ``bench.py`` counterpart, named without the leading
 underscore, with the reference's result keys:
@@ -20,7 +20,13 @@ underscore, with the reference's result keys:
 * :func:`delta_churn_rate` (``_delta_churn_rate``): the provider's full and
   delta rebalances, A/B, through :class:`TorchObjectPlacement`;
 * :func:`hier_rate` (``_hier_rate``): BASELINE row 5, the two-level solve
-  in chunks of 655,360 rows.
+  in chunks of 655,360 rows;
+* the live tiers, on the port's own actor runtime over real loopback TCP:
+  :func:`row2_torch_provider_live` (``row2_jax_provider_live``, BASELINE
+  row 2: 8 servers x 100,000 objects on :class:`TorchObjectPlacement`),
+  :func:`live_route_hops` (8 servers x 2,048 objects) and
+  :func:`scaled_route_hops` (64 servers x 50,000 objects and a stale
+  directory). They measure route hops, the second half of the headline.
 
 Timing is the reference's measurement without its relay defences. A single
 call ends in ``torch.cuda.synchronize()`` and is the best of 3 after a warm
@@ -29,8 +35,9 @@ each fed by the one before, with one synchronize at the end, best of 2
 (``_time_chained``). Nothing is compiled, so ``compile_s`` and
 ``chain_compile_s`` read -1.
 
-Every tier runs on CUDA unless it is given ``device="cpu"``, and raises
-without a card. Every result names its device (``platform``, ``device``,
+Every device tier runs on CUDA unless it is given ``device="cpu"``, and
+raises without a card; of the live tiers only row 2 has a device (its
+directory's). Every result names its device (``platform``, ``device``,
 ``power_limit``). Inputs are drawn from numpy seeds unless the caller hands
 them in as arrays, as the tests do with the reference's ``jax.random`` draws.
 """
@@ -42,6 +49,7 @@ import asyncio
 import json
 import sqlite3
 import subprocess
+import sys
 import time
 
 import numpy as np
@@ -56,6 +64,7 @@ from .ops.sinkhorn import exact_quota_repair
 from .ops.structured import class_quotas, expand_class_quotas
 from .parallel.hierarchical import chunked_hierarchical_assign, hierarchical_assign
 from .registry import ObjectId
+from .utils.routing_live import measure_route_hops_live, measure_route_hops_scaled
 
 N_NODES = 1024
 CHUNK = 65536  # rows per rounding chunk (bounds rounding temporaries)
@@ -718,6 +727,122 @@ def hier_rate(
 
 
 # ---------------------------------------------------------------------------
+# Live tiers: route hops over real loopback TCP on the port's runtime
+# ---------------------------------------------------------------------------
+
+
+def scaled_route_hops() -> dict:
+    """64 servers x 50,000 objects, and a stale directory (``bench.py``'s ``scaled_route_hops``).
+
+    The directory policy's hop win at scale, and its graceful degradation
+    (redirects and dial fallback, no failure) when the directory serves a
+    poisoned stale snapshot. The cluster's directory is ``LocalObjectPlacement``.
+    """
+    out = asyncio.run(measure_route_hops_scaled())
+    print(
+        f"# scaled routing ({out['n_servers']} servers, {out['n_objects']} objects, "
+        f"{out['displaced']} displaced on {out['dead_servers']} killed nodes, {out['wrong']} wrong "
+        f"pointers): reference mean={out['reference']['mean']} "
+        f"p99={out['reference']['p99']:.0f} | directory mean={out['directory']['mean']} "
+        f"p99={out['directory']['p99']:.0f} | STALE directory "
+        f"mean={out['stale']['mean']} p99={out['stale']['p99']:.0f} "
+        f"failures={out['stale_failures']}",
+        file=sys.stderr,
+    )
+    return out
+
+
+async def _watch_allocation(placement, n_objects: int, marks: dict) -> None:
+    """Record when the directory gets its first row and when it holds ``n_objects``."""
+    while True:
+        n = placement.count()
+        if n and "first" not in marks:
+            marks["first"] = time.perf_counter()
+        if n >= n_objects:
+            marks["full"] = time.perf_counter()
+            return
+        await asyncio.sleep(0.005)
+
+
+def row2_torch_provider_live(
+    device=None, *, n_servers: int = 8, n_objects: int = 100_000, sample_size: int = 4_000
+) -> dict:
+    """BASELINE row 2: 8 servers x 100,000 objects on ``TorchObjectPlacement``.
+
+    ``bench.py``'s ``row2_jax_provider_live`` with the port's provider on
+    ``device`` (CUDA unless the caller asks for the CPU; it raises without
+    a card) as the cluster's shared directory. Allocation flows through
+    the servers' self-assign into the provider (host only: no kernel runs),
+    and the directory-resolver policy then dials owners directly. Hops
+    are taken over ``sample_size`` sampled ids under both policies.
+
+    Besides the reference's ``ours`` and ``reference`` keys the result
+    holds the device fields, ``directory_device`` (the provider's device),
+    ``count`` (directory rows), ``alloc_s`` (the
+    directory's first row to its last), ``alloc_rate`` (objects seated a
+    second over that span), ``wall_s`` (the whole call: boot, allocation
+    and ``2 * sample_size`` hop requests) and ``native`` (whether the C++
+    envelope codec served).
+    """
+    from . import native
+
+    dev = resolve_device(device)
+    placement = TorchObjectPlacement(device=dev)
+    marks: dict = {}
+
+    async def run():
+        watcher = asyncio.create_task(_watch_allocation(placement, n_objects, marks))
+        try:
+            return await measure_route_hops_live(
+                n_servers=n_servers, n_objects=n_objects, placement=placement, sample_size=sample_size
+            )
+        finally:
+            watcher.cancel()
+
+    t0 = time.perf_counter()
+    stats = asyncio.run(run())
+    wall = time.perf_counter() - t0
+    ref, ours = stats["reference"], stats["rio_tpu"]
+    alloc_s = marks["full"] - marks["first"] if "full" in marks else float("nan")
+    print(
+        f"# row-2 live ({n_servers} servers, {n_objects} objects on TorchObjectPlacement, {dev}): "
+        f"directory p99={ours.p99:.0f} mean={ours.mean:.2f} | "
+        f"reference-policy p99={ref.p99:.0f} mean={ref.mean:.2f}",
+        file=sys.stderr,
+    )
+    return {
+        **device_fields(dev),
+        "ours": ours.as_dict(),
+        "reference": ref.as_dict(),
+        "n_servers": n_servers,
+        "n_objects": n_objects,
+        "directory_device": str(placement.device),
+        "count": placement.count(),
+        "alloc_s": alloc_s,
+        "alloc_rate": n_objects / alloc_s if alloc_s > 0 else float("nan"),
+        "wall_s": wall,
+        "native": native.get() is not None,
+    }
+
+
+def live_route_hops() -> dict:
+    """p99 route hops across real TCP round trips, 8 servers x 2,048 objects.
+
+    ``bench.py``'s ``live_route_hops``: the cluster's directory is
+    ``LocalObjectPlacement``, so no device takes part.
+    """
+    stats = asyncio.run(measure_route_hops_live(n_servers=8, n_objects=2048))
+    ref, ours = stats["reference"], stats["rio_tpu"]
+    print(
+        f"# measured route hops (live 8-server cluster, 2048 objects): "
+        f"ours p99={ours.p99:.0f} mean={ours.mean:.2f} | "
+        f"reference-policy p99={ref.p99:.0f} mean={ref.mean:.2f}",
+        file=sys.stderr,
+    )
+    return {"ours": ours.as_dict(), "reference": ref.as_dict()}
+
+
+# ---------------------------------------------------------------------------
 # Command line
 # ---------------------------------------------------------------------------
 
@@ -727,11 +852,19 @@ def headline(detail: dict, baseline: float) -> dict:
 
     The collapsed rebalance leads when it ran, else the dense solve, the
     hierarchical solve, then the delta rebalance (objects re-decided per
-    second). Route hops need the actor runtime, so the metric says "hops
-    unmeasured".
+    second). When ``route_hops`` ran, the metric ends in "measured p99 hops
+    {ours} vs {reference}", as ``bench.py``'s does; else in "hops
+    unmeasured". With only the live tiers run, the value is the directory
+    policy's p99 hops, the unit ``hops`` and ``vs_baseline`` its ratio to
+    the reference policy's.
     """
-    first = next(iter(detail.values()))
-    card = f"{first['device']}, power limit {first['power_limit']}"
+    if "route_hops" in detail:
+        h = detail["route_hops"]
+        hop_str = f"measured p99 hops {h['ours']['p99']:.0f} vs {h['reference']['p99']:.0f}"
+    else:
+        h, hop_str = None, "hops unmeasured"
+    first = next((r for r in detail.values() if "device" in r), None)
+    card = f"{first['device']}, power limit {first['power_limit']}" if first else "no device"
     if "collapsed_tier" in detail:
         c = detail["collapsed_tier"]
         dense = f"; dense OT {detail['solve_tier']['rate']:.0f}/s" if "solve_tier" in detail else ""
@@ -745,30 +878,38 @@ def headline(detail: dict, baseline: float) -> dict:
             f"solve+expand+repair on device, {c['n_obj']} objects x {c['n_nodes']} nodes "
             f"re-seated in {c['full_ms']:.2f} ms{sustain} after {c['dead_nodes']} node "
             f"deaths, moved {c['moved']} (displaced {c['displaced']}), {card}{dense}{warm}; "
-            "hops unmeasured)"
+            f"{hop_str})"
         )
         value = c["rate"]
     elif "solve_tier" in detail:
         s = detail["solve_tier"]
         metric = (
             f"placements/sec (OT solve, {s['n_obj']} objects x {s['n_nodes']} nodes, "
-            f"{card}; hops unmeasured)"
+            f"{card}; {hop_str})"
         )
         value = s["rate"]
     elif "baseline_row5_hier" in detail:
-        h = detail["baseline_row5_hier"]
+        r = detail["baseline_row5_hier"]
         metric = (
-            f"placements/sec (hierarchical OT, {h['n_obj']} objects x {h['n_nodes']} nodes "
-            f"in {h['n_chunks']} chunks, {card}; hops unmeasured)"
+            f"placements/sec (hierarchical OT, {r['n_obj']} objects x {r['n_nodes']} nodes "
+            f"in {r['n_chunks']} chunks, {card}; {hop_str})"
         )
-        value = h["rate"]
-    else:
+        value = r["rate"]
+    elif "delta_tier" in detail:
         t = detail["delta_tier"]
         metric = (
             f"placements/sec (delta rebalance of {t['n_obj']} objects x {t['n_nodes']} nodes "
-            f"after one node death, {t['delta_moved']} moved, {card}; hops unmeasured)"
+            f"after one node death, {t['delta_moved']} moved, {card}; {hop_str})"
         )
         value = t["n_obj"] / (t["delta_ms"] / 1e3)
+    else:
+        metric = f"p99 route hops (live 8-server cluster, directory policy, {card}; {hop_str})"
+        return {
+            "metric": metric,
+            "value": h["ours"]["p99"],
+            "unit": "hops",
+            "vs_baseline": h["ours"]["p99"] / h["reference"]["p99"],
+        }
     return {
         "metric": metric,
         "value": value,
@@ -791,10 +932,12 @@ def main(argv: list[str] | None = None) -> dict:
                         help="the collapsed rebalance, warm-assign and incremental tiers")
     parser.add_argument("--delta", action="store_true", help="the full vs delta rebalance A/B")
     parser.add_argument("--hier", action="store_true", help="BASELINE row 5, hierarchical")
+    parser.add_argument("--live", action="store_true",
+                        help="the live tiers: scaled routing, BASELINE row 2 and route hops")
     parser.add_argument("--out", default=None, help="also write every result to this JSON file")
     args = parser.parse_args(argv)
     dev = resolve_device(None)
-    every = not (args.tier or args.collapsed or args.delta or args.hier)
+    every = not (args.tier or args.collapsed or args.delta or args.hier or args.live)
     detail: dict = {}
 
     def emit(name: str, result: dict) -> None:
@@ -819,6 +962,10 @@ def main(argv: list[str] | None = None) -> dict:
         emit("delta_tier", delta_churn_rate(1_048_576, device=dev))
     if args.hier or every:
         emit("baseline_row5_hier", hier_rate(10_485_760, device=dev))
+    if args.live or every:
+        emit("scaled_routing", scaled_route_hops())
+        emit("row2_torch_provider", row2_torch_provider_live(dev))
+        emit("route_hops", live_route_hops())
     baseline = sqlite_baseline_rate()
     line = headline(detail, baseline)
     if args.out:

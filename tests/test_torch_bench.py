@@ -271,3 +271,41 @@ def test_headline_has_the_reference_shape_and_names_the_card():
 
 def test_sqlite_baseline_runs_the_reference_queries():
     assert port.sqlite_baseline_rate(200) > 0 and ref.sqlite_baseline_rate(200) > 0
+
+
+HOP_KEYS = {"mean", "p50", "p99", "n"}
+
+
+def test_live_route_hops_returns_the_references_keys():
+    got = port.live_route_hops()
+    assert set(got) == {"ours", "reference"}
+    assert set(got["ours"]) == set(got["reference"]) == HOP_KEYS
+    assert got["ours"]["n"] == got["reference"]["n"] == 2048
+    assert got["ours"]["p99"] == 1.0 and got["reference"]["p99"] == 2.0
+
+
+def test_row2_torch_provider_live_returns_the_references_keys():
+    got = port.row2_torch_provider_live(device="cpu", n_objects=2000, sample_size=500)
+    assert {"ours", "reference"} <= set(got)
+    assert set(got["ours"]) == set(got["reference"]) == HOP_KEYS
+    assert got["ours"]["n"] == got["reference"]["n"] == 500
+    assert got["ours"]["mean"] == 1.0 and got["ours"]["p99"] == 1.0
+    assert got["reference"]["p99"] == 2.0 and got["reference"]["mean"] > 1.5
+    assert got["count"] == 2000 and got["n_servers"] == 8
+    assert (got["platform"], got["device"], got["power_limit"]) == ("cpu", "cpu", None)
+    assert got["directory_device"] == "cpu"
+    assert got["alloc_s"] > 0 and got["wall_s"] >= got["alloc_s"]
+
+
+def test_headline_reports_measured_hops_when_route_hops_ran():
+    card = {"platform": "cuda", "device": "NVIDIA H100 80GB HBM3", "power_limit": "700.00 W"}
+    hops = {"ours": {"mean": 1.0, "p50": 1.0, "p99": 1.0, "n": 2048},
+            "reference": {"mean": 1.88, "p50": 2.0, "p99": 2.0, "n": 2048}}
+    solve = {**card, "n_obj": 1_048_576, "n_nodes": 1024, "rate": 1.0e7}
+    line = port.headline({"solve_tier": solve, "route_hops": hops}, 1.0e4)
+    assert "measured p99 hops 1 vs 2" in line["metric"] and "unmeasured" not in line["metric"]
+    assert "NVIDIA H100 80GB HBM3" in line["metric"] and line["unit"] == "placements/sec"
+    live_only = port.headline({"route_hops": hops}, 1.0e4)
+    assert set(live_only) == {"metric", "value", "unit", "vs_baseline"}
+    assert live_only["value"] == 1.0 and live_only["unit"] == "hops" and live_only["vs_baseline"] == 0.5
+    assert "measured p99 hops 1 vs 2" in live_only["metric"]

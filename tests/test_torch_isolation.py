@@ -43,7 +43,28 @@ def test_importing_every_module_of_the_port_loads_no_jax():
     assert "rio_tpu_torch.ops.prng" in result["imported"]
     assert "rio_tpu_torch.bench" in result["imported"]
     assert "rio_tpu_torch.profiling" in result["imported"]
+    for name in ("server", "client", "codec", "utils.routing_live", "utils.churn_live",
+                 "examples.tpu_placement", "placement_daemon", "native", "native.transport",
+                 "streams.cursor", "streams.saga", "autoscale", "cluster.storage.http"):
+        assert f"rio_tpu_torch.{name}" in result["imported"], name
     assert result["bad"] == [], f"the port loaded {result['bad']}"
+
+
+_IMPORT_RUNTIME = """
+import json, sys
+from rio_tpu_torch import Server, Client, LocalStorage, Registry, ServiceObject, handler, message
+import rio_tpu_torch.codec, rio_tpu_torch.utils.routing_live, rio_tpu_torch.examples.tpu_placement
+print(json.dumps(sorted(n for n in sys.modules if n.split(".")[0] in ("jax", "jaxlib", "rio_tpu"))))
+"""
+
+
+def test_the_ports_runtime_loads_no_jax_and_no_rio_tpu():
+    out = subprocess.run(
+        [sys.executable, "-c", _IMPORT_RUNTIME],
+        cwd=ROOT, capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
 def _imported_roots(path):

@@ -83,9 +83,10 @@ Phases, each printing one JSON line:
      displaced objects and nothing else; its locality hit rate (displaced objects on
      their secondary) at least 10x chance;
    - ``hier_at_scale``: ``mode="sinkhorn"`` at 10,485,760 objects: ``assign_batch``,
-     then ``rebalance(delta=False)`` before and after 31 nodes die, each routed
+     then ``rebalance(delta=False)`` after 31 nodes die, routed
      (``sinkhorn+hier_at_scale``, 32 chunks, 1 device) with dead nodes empty and live
-     loads within 10% of fair; undisplaced moves printed.
+     loads within 10% of fair; undisplaced moves printed. (A settling rebalance
+     before the deaths was dropped to keep the script under 900 s.)
 
    Then ``hier_times``.
 14. the ``affinity`` group: ``TorchObjectPlacement(affinity_weight=2.0)`` (host factor 0.5,
@@ -168,8 +169,8 @@ Phases, each printing one JSON line:
      and mean > 1.5; its allocation wall and rate; then ``bench.live_route_hops`` (8 x
      2,048 on ``LocalObjectPlacement``) for the headline;
    - ``live_churn``: 8 servers with gossip (a death after 3 failed 2 s probes within
-     10 s) and ``placement_daemon=True`` (poll 0.1 s, debounce 0.05 s), 100,000 echo
-     objects and 8,192 durable counters (one acknowledged ``Add`` each, state in a shared
+     10 s) and ``placement_daemon=True`` (poll 0.1 s, debounce 0.05 s), 50,000 echo
+     objects (cut from row 2's 100,000: ``CHURN_OBJ``) and 8,192 durable counters (one acknowledged ``Add`` each, state in a shared
      ``LocalState``), every server with ``load_monitor=False`` (they share one event loop,
      whose lag would enter every node's load; the line prints ``load_monitor``); the
      server with the most rows exits; a daemon's rebalance completes
@@ -183,7 +184,40 @@ Phases, each printing one JSON line:
      hierarchical provider with an ``AffinityTracker``, 200 objects, one server killed):
      a completed daemon re-solve in ``hierarchical`` mode that was not discarded, the
      tracker holding all 200 objects, every object answering afterwards.
-18. the ``bench`` group: ``rio_tpu_torch.bench``'s tiers (``bench.py``'s device tiers) at
+18. the ``durable`` group: BASELINE row 2 on the port's durable backends, three SQLite
+   files in a ``tempfile.mkdtemp()`` directory (``rio_tpu_torch.utils.durable_live``): 8
+   servers on ``SqliteMembershipStorage``, ``PersistentTorchObjectPlacement`` on the card
+   over ``SqliteObjectPlacement`` (``auto`` mode, the default ``flush_interval``) and
+   ``SqliteState`` behind 8,192 ``DurableCounter`` s; each phase with both kernels' launch
+   counts (0) and ``reduced`` (the cut of the object count and its cause):
+
+   - ``durable_row2``: 73,000 echo objects (cut from 100,000: ``DUR_OBJ``) and the
+     counters (one acknowledged ``Add`` each) allocated through a client; the
+     write-behind drained (the backing writes and commits one row at a time); the
+     file read back through a second
+     ``SqliteObjectPlacement`` equals the directory key for key. It prints the
+     allocation's seconds, rows written, the wait for the drain, the backing's seconds
+     and microseconds a row and the file's bytes;
+   - ``durable_restart``: every server flushed and stopped with ``server_exit`` (the
+     flush's rows printed); a fresh provider restores the file onto the card (its
+     ``prepare()`` timed), 8 fresh servers boot on new ports over the same three files:
+     the restored count equals the flushed count before any traffic, every restored
+     row names a ghost, 1,000 new ids seat on live servers only, 4,000 sampled restored
+     ids answer through the reactive re-seat (hops printed: a completed round trip or a
+     failed dial), every counter reads back its acknowledged value from a live server;
+     then the rows the re-seat wrote back, drained and timed.
+19. the ``affinity_live`` group: the affinity feedback loop on ``TorchObjectPlacement`` on
+   the card, with both kernels' launch counts (0: ``greedy`` mode and the refine's plain
+   ``sinkhorn``):
+
+   - ``affinity_live``: ``rio_tpu_torch.bench.affinity_payoff`` (``bench.py``'s, at its
+     sizes: 256 records x 4,096 B over 2 servers, ``affinity_weight`` 2.0, host factor
+     0.05, ``spans_slo_ms`` 0.001, ``affinity_stride`` 1): bytes over TCP at least 2x
+     fewer after the feedback, every cursor co-located with its consumer, fewer delivery
+     spans on the wire, a ``+affinity`` solve, no record lost (the harness raises); the
+     edge sampler's overhead is printed, not bounded;
+   - ``affinity_demo``: ``rio_tpu_torch.examples.affinity`` (8 pairs, its own >= 2x bar).
+20. the ``bench`` group: ``rio_tpu_torch.bench``'s tiers (``bench.py``'s device tiers) at
    the reference's sizes, each line holding the tier's result (with its device and power
    limit), its launch counts of both kernels and its peak device memory:
 
@@ -203,7 +237,7 @@ Phases, each printing one JSON line:
      overflow, loads within 10% of fair, no kernel launch;
    - ``bench_headline``: the reference's last line over these results and the live
      group's route hops (so it reads "measured p99 hops").
-19. ``profile``: ``torch.profiler`` (CPU and CUDA activities) over a short window of the
+21. ``profile``: ``torch.profiler`` (CPU and CUDA activities) over a short window of the
    main path (3 steps), the log-domain path (1 step), ``collapsed_decide`` at 1,048,576 x
    1,024, one ``hierarchical_assign`` chunk of 524,288 rows (``hier_assign``'s chunk 0) and
    a warm directory full rebalance after 30 deaths: each path's window ms (beside the
@@ -234,6 +268,7 @@ import subprocess
 import sys
 import time
 
+T_START = time.perf_counter()
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores, NVIDIA data sheet
 EXP_PER_CLOCK_PER_SM = 16  # Hopper SM: 16 special-function results (ex2) per clock
@@ -288,12 +323,33 @@ RANDOM_MEAN_COST = 0.5  # a random placement's mean cost on U[0, 1) costs
 # population in the churn phase, and the churn bound of
 # tests/test_torch_placement_server.py (moved <= displaced + n/4).
 LIVE_SERVERS, LIVE_OBJ, LIVE_SAMPLE, LIVE_COUNTERS = 8, 100_000, 4_000, 8_192
+# The churn phase's echo population, cut from row 2's 100,000 to keep the script
+# under 900 s once the durable group runs (live_row2 keeps the full row).
+CHURN_OBJ = 50_000
+# The durable group: BASELINE row 2 on SQLite (the live group's 8 servers, 8,192
+# counters and 4,000 sampled ids), 1,000 new ids after the restart. The backing
+# writes and commits one row at a time. On an H100 80GB HBM3 host at 700 W, three
+# runs wrote 1,016.11-1,476.41 us a row; the one at 100,000 objects took 126.8 s,
+# over the 120 s budget. The echo objects are cut to what 120 s of writes allow at
+# the slowest reading (120 s / 1,476.41 us = 81,277 rows, less the 8,192 counters,
+# rounded down). The phase prints the rate its own run measured as ``us_per_row``.
+DUR_OBJ, DUR_NEW = 73_000, 1_000
+DUR_REDUCED = {
+    "objects": [LIVE_OBJ, DUR_OBJ], "sized_at_us_per_row": 1476.41,
+    "sized_from": "the slowest of three earlier runs' writes (1016.11-1476.41 us a row)",
+    "flush_budget_s": 120.0,
+    "cause": "one row written and committed per update (the trait's update_batch)",
+}
+# The affinity_live group: affinity_live.py's sizes (256 records x 4,096 B, 2 servers,
+# affinity_weight 2.0, host factor 0.05) and its bar.
+AFF_LIVE_RATIO = 2.0
 # The profile phase: main-path steps in its window.
 PROFILE_MAIN_STEPS = 3
 
 
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One phase's JSON line; ``t_s`` is the script's seconds when the phase ended."""
+    print(json.dumps({"phase": phase, **fields, "t_s": time.perf_counter() - T_START}), flush=True)
 
 
 def check(cond: bool, what: str) -> None:
@@ -848,7 +904,7 @@ async def hier_phases(dev, card: dict, keep: dict) -> dict:
     _, assign_ms, launches, peak = await provider_call(lambda: p.assign_batch(ids), "assign_batch")
     del ids
     steps = {}
-    for step, gone in (("settle", set()), ("kill", set(dead))):
+    for step, gone in (("kill", set(dead)),):
         before = seat_array(p)
         p.sync_members(members(gone))
         moved, ms, step_launches, step_peak = await provider_call(
@@ -863,9 +919,7 @@ async def hier_phases(dev, card: dict, keep: dict) -> dict:
         steps[step] = {"wall_ms": ms, **stats_fields(p), "live_loads": spread,
                        "undisplaced_moves": undisplaced, "peak_bytes": step_peak,
                        "launches": step_launches}
-    out.update(scale_assign_ms=assign_ms, scale_settle_ms=steps["settle"]["wall_ms"],
-               scale_settle_solve_ms=steps["settle"]["solve_ms"],
-               scale_kill_ms=steps["kill"]["wall_ms"], scale_kill_solve_ms=steps["kill"]["solve_ms"])
+    out.update(scale_assign_ms=assign_ms, scale_kill_ms=steps["kill"]["wall_ms"], scale_kill_solve_ms=steps["kill"]["solve_ms"])
     emit("hier_at_scale", **card, n=HIER_OBJ, m=DIR_NODES, killed=HIER_DEAD,
          assign={"wall_ms": assign_ms, "peak_bytes": peak, "launches": launches}, **steps)
     return out
@@ -1523,11 +1577,11 @@ def live_phases(dev, card: dict) -> dict:
     check(placement._solver_mode() == "sinkhorn", f"auto resolves to {placement._solver_mode()}")
     _reset_launches()
     churn = asyncio.run(measure_daemon_churn(
-        placement, n_servers=LIVE_SERVERS, n_echo=LIVE_OBJ, n_counters=LIVE_COUNTERS,
+        placement, n_servers=LIVE_SERVERS, n_echo=CHURN_OBJ, n_counters=LIVE_COUNTERS,
         sample_size=LIVE_SAMPLE,
     ))
     launches = _read_launches("live_churn")
-    n = LIVE_OBJ + LIVE_COUNTERS
+    n = CHURN_OBJ + LIVE_COUNTERS
     st = churn["stats"]
     check(churn["n_objects"] == n and placement.count() == n, f"churn directory holds {placement.count()}")
     check(churn["dead_rows"] == 0, f"{churn['dead_rows']} rows left on the dead node")
@@ -1553,6 +1607,84 @@ def live_phases(dev, card: dict) -> dict:
     return {"route_hops": hops}
 
 
+def durable_phases(dev, card: dict) -> None:
+    """The ``durable`` group (phase 18): BASELINE row 2 persists to SQLite and restarts."""
+    import shutil
+    import tempfile
+
+    from rio_tpu_torch.utils import durable_live as D
+
+    rt = D.port_runtime(dev)
+    data_dir = tempfile.mkdtemp(prefix="rio_durable_")
+    try:
+        # -- durable_row2 ------------------------------------------------------------
+        _reset_launches()
+        first = asyncio.run(D.first_life(
+            rt, data_dir, n_servers=LIVE_SERVERS, n_objects=DUR_OBJ, n_counters=LIVE_COUNTERS
+        ))
+        launches = _read_launches("durable_row2")
+        n = DUR_OBJ + LIVE_COUNTERS
+        check(first["n_servers"] == LIVE_SERVERS, f"{first['n_servers']} servers")
+        check(first["directory_device"].startswith("cuda"), f"directory on {first['directory_device']}")
+        check(first["directory_rows"] == first["file_rows"] == n,
+              f"directory {first['directory_rows']} rows, file {first['file_rows']}, want {n}")
+        check(first["rows_equal"], "the file's rows differ from the directory")
+        check(sorted(set(first["acked"].values())) == [1], "a counter's Add was not acknowledged at 1")
+        check(first["exited_cleanly"], "a server did not exit")
+        emit("durable_row2", **card, reduced=DUR_REDUCED,
+             **{k: v for k, v in first.items() if k not in ("acked", "addresses", "pre_exit_flush_rows",
+                                                        "closing_flush_rows", "exit_s", "exited_cleanly")},
+             launches=launches)
+
+        # -- durable_restart ---------------------------------------------------------
+        _reset_launches()
+        second = asyncio.run(D.second_life(
+            rt, data_dir, first, n_servers=LIVE_SERVERS, n_new=DUR_NEW, sample_size=LIVE_SAMPLE
+        ))
+        launches = _read_launches("durable_restart")
+        flushed = first["file_rows"]
+        check(second["restored"] == flushed, f"restored {second['restored']} of {flushed} rows")
+        check(second["restored_on_ghosts"] == flushed and second["restored_on_live"] == 0,
+              f"restored rows on ghosts {second['restored_on_ghosts']}, on live {second['restored_on_live']}")
+        check(second["new_on_ghosts"] == 0 and second["new_on_live"] == DUR_NEW,
+              f"new ids on ghosts {second['new_on_ghosts']}, on live {second['new_on_live']}")
+        check(second["answered"] == second["hops"]["n"] == LIVE_SAMPLE,
+              f"{second['answered']} of {LIVE_SAMPLE} sampled ids answered")
+        check(second["counters"] == LIVE_COUNTERS and second["lost"] == [], f"counters lost: {second['lost']}")
+        check(second["exited_cleanly"], "a server of the second life did not exit")
+        stop = {k: first[k] for k in ("pre_exit_flush_rows", "closing_flush_rows", "exit_s", "exited_cleanly")}
+        emit("durable_restart", **card, reduced=DUR_REDUCED, first_stop=stop, flushed=flushed,
+             **second, launches=launches)
+    finally:
+        shutil.rmtree(data_dir, ignore_errors=True)
+
+
+def affinity_live_phases(dev, card: dict) -> None:
+    """The ``affinity_live`` group (phase 19): the affinity feedback loop on the card's provider."""
+    from rio_tpu_torch import bench as B
+    from rio_tpu_torch.examples.affinity import N_PAIRS
+    from rio_tpu_torch.examples.affinity import main as affinity_demo
+
+    # -- affinity_live -------------------------------------------------------------
+    _reset_launches()
+    out = B.affinity_payoff(dev)
+    launches = _read_launches("affinity_live")
+    spans = out["delivery_wire_spans"]
+    check(out["host"]["platform"] == "cuda", f"the provider ran on {out['host']}")
+    check(out["bytes_ratio"] >= AFF_LIVE_RATIO, f"bytes ratio {out['bytes_ratio']}")
+    check(out["pairs_colocated"] == out["partitions"], f"{out['pairs_colocated']} of {out['partitions']} pairs")
+    check(spans["affinity"] < spans["blind"], f"delivery wire spans {spans}")
+    check("+affinity" in str(out["solved_as"]), f"solved as {out['solved_as']}")
+    emit("affinity_live", **card, provider_device=str(dev), **out, launches=launches)
+
+    # -- affinity_demo -------------------------------------------------------------
+    _reset_launches()
+    demo = asyncio.run(affinity_demo(dev))
+    launches = _read_launches("affinity_demo")
+    check(demo["pairs"] == N_PAIRS and demo["ratio"] >= AFF_LIVE_RATIO, f"demo {demo}")
+    emit("affinity_demo", **card, provider_device=str(dev), **demo, launches=launches)
+
+
 def run_tier(fn, what: str, kernel_ok: bool = False):
     """Run one bench tier with both kernel counts at 0: its result, the counts
     read just after and its peak device memory. Unless ``kernel_ok``, a tier
@@ -1569,7 +1701,7 @@ def run_tier(fn, what: str, kernel_ok: bool = False):
 
 
 def bench_phases(dev, card: dict, live: dict | None = None) -> int:
-    """The ``bench`` group (phase 18); returns the scaling kernel's launches in it.
+    """The ``bench`` group (phase 20); returns the scaling kernel's launches in it.
 
     ``live`` holds the live group's ``route_hops`` for the headline."""
     import math
@@ -1695,7 +1827,7 @@ def bench_phases(dev, card: dict, live: dict | None = None) -> int:
 
 
 async def profile_phase(dev, card: dict) -> None:
-    """The ``profile`` phase (19): the device's idle share on five paths."""
+    """The ``profile`` phase (21): the device's idle share on five paths."""
     import numpy as np
     import torch
 
@@ -2170,11 +2302,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     live = live_phases(dev, card)
 
-    # -- 18. bench.py's device tiers -----------------------------------------------
+    # -- 18. the durable backends: a live cluster persists to SQLite and restarts -----
+    torch.cuda.empty_cache()
+    durable_phases(dev, card)
+
+    # -- 19. the affinity feedback loop on a live cluster --------------------------
+    affinity_live_phases(dev, card)
+
+    # -- 20. bench.py's device tiers -----------------------------------------------
     torch.cuda.empty_cache()
     bench_launches = bench_phases(dev, card, live)
 
-    # -- 19. the device's idle share ---------------------------------------------
+    # -- 21. the device's idle share ---------------------------------------------
     torch.cuda.empty_cache()
     asyncio.run(profile_phase(dev, card))
 

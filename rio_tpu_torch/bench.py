@@ -1,6 +1,7 @@
 """The tiers of ``bench.py`` on the port: placements/sec on one CUDA card, route hops live.
 
-    python -m rio_tpu_torch.bench [--tier N] [--collapsed] [--delta] [--hier] [--live] [--out PATH]
+    python -m rio_tpu_torch.bench [--tier N] [--collapsed] [--delta] [--hier] [--live] [--affinity]
+                                  [--out PATH]
 
 Each tier is its ``bench.py`` counterpart, named without the leading
 underscore, with the reference's result keys:
@@ -26,7 +27,10 @@ underscore, with the reference's result keys:
   row 2: 8 servers x 100,000 objects on :class:`TorchObjectPlacement`),
   :func:`live_route_hops` (8 servers x 2,048 objects) and
   :func:`scaled_route_hops` (64 servers x 50,000 objects and a stale
-  directory). They measure route hops, the second half of the headline.
+  directory). They measure route hops, the second half of the headline;
+* :func:`affinity_payoff` (``affinity_payoff``): the affinity feedback
+  loop on two live servers, blind vs affinity-fed placement on
+  :class:`TorchObjectPlacement`, and the edge sampler's cost.
 
 Timing is the reference's measurement without its relay defences. A single
 call ends in ``torch.cuda.synchronize()`` and is the best of 3 after a warm
@@ -47,6 +51,7 @@ from __future__ import annotations
 import argparse
 import asyncio
 import json
+import os
 import sqlite3
 import subprocess
 import sys
@@ -842,6 +847,58 @@ def live_route_hops() -> dict:
     return {"ours": ours.as_dict(), "reference": ref.as_dict()}
 
 
+def _host_provenance() -> dict:
+    """``bench.py``'s host conditions: cores the run had and the load average."""
+    prov: dict = {"cpu_count": os.cpu_count()}
+    try:
+        prov["sched_affinity"] = sorted(os.sched_getaffinity(0))
+    except (AttributeError, OSError):
+        prov["sched_affinity"] = None
+    try:
+        prov["loadavg"] = [round(x, 2) for x in os.getloadavg()]
+    except OSError:
+        prov["loadavg"] = None
+    return prov
+
+
+def affinity_payoff(device=None) -> dict:
+    """``bench.py``'s ``affinity_payoff`` with the provider on ``device``.
+
+    The payoff: an adversarial multi-hop pipeline (producer and stream
+    cursors seated on node 0, consumers on node 1) runs affinity-blind,
+    then the merged edge graph is fed back through ``set_edge_graph`` and a
+    full ``rebalance`` of :class:`TorchObjectPlacement` (CUDA unless the
+    caller asks for the CPU), and the same traffic runs again; the
+    transports' TCP byte counters price both phases. The cost: the
+    dispatch-path edge sampler off vs on over an echo cluster on
+    ``LocalObjectPlacement``, median paired ratio.
+
+    The result has the reference's keys; ``host`` adds the device fields
+    of the provider's device to the host's cores and load. Unlike the
+    reference, nothing is written to disk.
+    """
+    from .utils.affinity_live import measure_affinity_payoff, measure_sampler_overhead
+
+    dev = resolve_device(device)
+    out = asyncio.run(measure_affinity_payoff(device=dev))
+    out["sampler"] = asyncio.run(measure_sampler_overhead())
+    out["host"] = {**_host_provenance(), **device_fields(dev)}
+    tcp, spans = out["tcp_bytes"], out["delivery_wire_spans"]
+    m = out["sampler"]["msgs_per_sec"]
+    print(
+        f"# affinity payoff ({out['n_records']} records x {out['pad_bytes']}B over "
+        f"{out['partitions']} partitions, {out['edges_installed']} edges fed back, "
+        f"{out['moves']} moves, solved as {out['solved_as']} on {dev}): TCP bytes blind "
+        f"{tcp['blind']:,} -> affinity {tcp['affinity']:,} ({out['bytes_ratio']:.1f}x), "
+        f"cross-node delivery wire spans {spans['blind']} -> {spans['affinity']}, "
+        f"{out['pairs_colocated']}/{out['partitions']} pairs co-located; sampler off "
+        f"{m['off']:,.0f}/s, on {m['on']:,.0f}/s "
+        f"({out['sampler']['sampler_overhead_pct']:+}% median paired)",
+        file=sys.stderr,
+    )
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Command line
 # ---------------------------------------------------------------------------
@@ -921,7 +978,8 @@ def headline(detail: dict, baseline: float) -> dict:
 def main(argv: list[str] | None = None) -> dict:
     """Run the asked tiers on the card, one JSON line each, then the headline line.
 
-    With no tier flag every tier runs. Raises without a CUDA device.
+    With no tier flag every tier runs. ``--affinity`` alone prints its line
+    and returns its result, with no headline. Raises without a CUDA device.
     """
     parser = argparse.ArgumentParser(
         prog="python -m rio_tpu_torch.bench", description=__doc__.split("\n\n")[0]
@@ -934,10 +992,12 @@ def main(argv: list[str] | None = None) -> dict:
     parser.add_argument("--hier", action="store_true", help="BASELINE row 5, hierarchical")
     parser.add_argument("--live", action="store_true",
                         help="the live tiers: scaled routing, BASELINE row 2 and route hops")
+    parser.add_argument("--affinity", action="store_true",
+                        help="the affinity feedback loop's payoff and the edge sampler's cost")
     parser.add_argument("--out", default=None, help="also write every result to this JSON file")
     args = parser.parse_args(argv)
     dev = resolve_device(None)
-    every = not (args.tier or args.collapsed or args.delta or args.hier or args.live)
+    every = not (args.tier or args.collapsed or args.delta or args.hier or args.live or args.affinity)
     detail: dict = {}
 
     def emit(name: str, result: dict) -> None:
@@ -966,6 +1026,14 @@ def main(argv: list[str] | None = None) -> dict:
         emit("scaled_routing", scaled_route_hops())
         emit("row2_torch_provider", row2_torch_provider_live(dev))
         emit("route_hops", live_route_hops())
+    if args.affinity or every:
+        emit("affinity", affinity_payoff(dev))
+    if set(detail) == {"affinity"}:
+        # The payoff alone has no placements/sec or hops to head a line with.
+        if args.out:
+            with open(args.out, "w") as fh:
+                json.dump(detail, fh, indent=1)
+        return detail["affinity"]
     baseline = sqlite_baseline_rate()
     line = headline(detail, baseline)
     if args.out:

@@ -15,8 +15,8 @@ history beside the solve's ``snap``:
 
 Then the two pieces the port computes another way than the reference
 (the attraction as a matrix product, the mover truncation as one sort),
-each against a literal copy of the reference's code, and
-``measure_affinity_payoff`` run on the port's provider.
+each against a literal copy of the reference's code, and the port's own
+``measure_affinity_payoff`` (``rio_tpu_torch.utils.affinity_live``).
 """
 
 import asyncio
@@ -27,10 +27,10 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from rio_tpu.object_placement import jax_placement as jp  # noqa: E402
-from rio_tpu.utils import affinity_live  # noqa: E402
 
 from rio_tpu_torch.object_placement import TorchObjectPlacement  # noqa: E402
 from rio_tpu_torch.object_placement import torch_placement as tp  # noqa: E402
+from rio_tpu_torch.utils import affinity_live  # noqa: E402
 
 from .torch_placement_parity import (  # noqa: E402
     JAX_API,
@@ -385,16 +385,15 @@ def test_host_ids_equal_the_reference_index():
 # ------------------------------------------------------ the live payoff
 
 
-def test_affinity_payoff_on_the_port(monkeypatch):
-    """``measure_affinity_payoff`` (two live servers, blind vs affinity-fed
-    placement on identical multi-hop traffic) on the port's provider,
-    held to the harness's own bar."""
-    monkeypatch.setattr(
-        affinity_live, "JaxObjectPlacement",
-        lambda **kw: TorchObjectPlacement(device="cpu", **kw),
-    )
+def test_affinity_payoff_on_the_port():
+    """The port's ``measure_affinity_payoff`` (two live servers of the port's
+    runtime, blind vs affinity-fed placement on identical multi-hop traffic)
+    on ``TorchObjectPlacement(device="cpu")``, held to the harness's own bar."""
+    assert affinity_live.TorchObjectPlacement is TorchObjectPlacement
     out = asyncio.run(
-        asyncio.wait_for(affinity_live.measure_affinity_payoff(n_records=64), timeout=120)
+        asyncio.wait_for(
+            affinity_live.measure_affinity_payoff(n_records=64, device="cpu"), timeout=120
+        )
     )
     assert "+affinity" in str(out["solved_as"]), out
     assert out["pairs_colocated"] == out["partitions"], out

@@ -45,9 +45,42 @@ def test_importing_every_module_of_the_port_loads_no_jax():
     assert "rio_tpu_torch.profiling" in result["imported"]
     for name in ("server", "client", "codec", "utils.routing_live", "utils.churn_live",
                  "examples.tpu_placement", "placement_daemon", "native", "native.transport",
-                 "streams.cursor", "streams.saga", "autoscale", "cluster.storage.http"):
+                 "streams.cursor", "streams.saga", "autoscale", "cluster.storage.http",
+                 *BACKENDS, "utils.affinity_live", "examples.affinity"):
         assert f"rio_tpu_torch.{name}" in result["imported"], name
     assert result["bad"] == [], f"the port loaded {result['bad']}"
+
+
+BACKENDS = [
+    f"{family}.{kind}"
+    for kind in ("sqlite", "postgres", "redis")
+    for family in ("cluster.storage", "object_placement", "state", "reminders", "streams")
+] + ["utils.sqlite", "utils.pg", "utils.resp"]
+
+_IMPORT_DURABLE = """
+import importlib, json, sys
+names = sys.argv[1:]
+for name in names:
+    importlib.import_module("rio_tpu_torch." + name)
+import rio_tpu_torch.utils.affinity_live as live
+import rio_tpu_torch.examples.affinity as demo
+from rio_tpu_torch.object_placement.torch_placement import TorchObjectPlacement
+print(json.dumps({
+    "bad": sorted(n for n in sys.modules if n.split(".")[0] in ("jax", "jaxlib", "rio_tpu")),
+    "providers": [live.TorchObjectPlacement is TorchObjectPlacement,
+                  demo.TorchObjectPlacement is TorchObjectPlacement],
+}))
+"""
+
+
+def test_the_durable_backends_and_the_affinity_loop_load_no_jax_and_no_rio_tpu():
+    out = subprocess.run(
+        [sys.executable, "-c", _IMPORT_DURABLE, *BACKENDS, "utils.affinity_live", "examples.affinity"],
+        cwd=ROOT, capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    assert result == {"bad": [], "providers": [True, True]}
 
 
 _IMPORT_RUNTIME = """

@@ -1,12 +1,13 @@
 """PersistentTorchObjectPlacement: the port's provider with write-behind durability.
 
 Every scenario of ``tests/test_persistent_placement.py`` on
-``PersistentTorchObjectPlacement(device="cpu")``: over ``rio_tpu``'s
-``SqliteObjectPlacement`` and over the port's ``LocalObjectPlacement``
+``PersistentTorchObjectPlacement(device="cpu")``: over the port's
+``SqliteObjectPlacement`` and over its ``LocalObjectPlacement``
 (a "restart" is a fresh provider over the same store), and with the
 reference's failing backings built on the port's ``LocalObjectPlacement``.
-Then the same mutations on ``PersistentJaxObjectPlacement`` and on the
-port's provider leave the same backing rows, and the live-cluster restart
+Then the same mutations on ``PersistentJaxObjectPlacement`` over
+``rio_tpu``'s SQLite backing and on the port's provider over its own leave
+the same backing rows, and the live-cluster restart
 of ``tests/test_persistent_restart_e2e.py`` runs ``rio_tpu`` servers on the
 port's provider over SQLite.
 """
@@ -20,13 +21,14 @@ pytest.importorskip("torch")
 
 from rio_tpu import ObjectId as JaxObjectId  # noqa: E402
 from rio_tpu.object_placement.persistent import PersistentJaxObjectPlacement  # noqa: E402
-from rio_tpu.object_placement.sqlite import SqliteObjectPlacement  # noqa: E402
+from rio_tpu.object_placement.sqlite import SqliteObjectPlacement as RefSqliteObjectPlacement  # noqa: E402
 
 from rio_tpu_torch.object_placement import (  # noqa: E402
     LocalObjectPlacement,
     ObjectPlacementItem,
     PersistentTorchObjectPlacement,
 )
+from rio_tpu_torch.object_placement.sqlite import SqliteObjectPlacement  # noqa: E402
 from rio_tpu_torch.registry import ObjectId  # noqa: E402
 
 from .test_persistent_restart_e2e import Pin, Poke, Where, build_registry  # noqa: E402
@@ -239,7 +241,7 @@ async def _mutations(p, make_id) -> dict[str, str]:
 async def test_backing_rows_equal_the_jax_provider(tmp_path):
     def jax_make():
         return PersistentJaxObjectPlacement(
-            SqliteObjectPlacement(str(tmp_path / "jax.db")), flush_interval=0.01, mode="greedy"
+            RefSqliteObjectPlacement(str(tmp_path / "jax.db")), flush_interval=0.01, mode="greedy"
         )
 
     def torch_make():

@@ -1,14 +1,20 @@
-"""The port's actor runtime is ``rio_tpu``'s, copied word for word.
+"""The port's actor runtime and durable backends are ``rio_tpu``'s, copied word for word.
 
-Each of the 50 files below sits at the same path under ``rio_tpu_torch/``
-as under ``rio_tpu/``. With docstrings stripped, and ``rio_tpu_torch`` read
-as ``rio_tpu`` in import names and string constants, the two files parse
-to the same tree. One difference is deliberate, and this test names it
-line for line (as ``ast.unparse`` prints it):
+Each of the 70 files below sits at the same path under ``rio_tpu_torch/``
+as under ``rio_tpu/`` (the affinity demo, ``examples/affinity.py``, sits
+at the repo's root in the reference). With docstrings stripped, and
+``rio_tpu_torch`` read as ``rio_tpu`` in import names and string constants,
+the two files parse to the same tree. Three differences are deliberate, and
+this test names them line for line (as ``ast.unparse`` prints them):
 
 * ``native/__init__.py`` builds the repo's ``native/rio_native.cc`` into
   ``rio_tpu_torch/kernels/_build/`` (git-ignored, made on demand) and
-  never touches the reference's ``native/librio_native.so``.
+  never touches the reference's ``native/librio_native.so``;
+* ``utils/affinity_live.py`` and ``examples/affinity.py`` build
+  ``TorchObjectPlacement`` where the reference builds
+  ``JaxObjectPlacement``, with the same keywords and a ``device`` the
+  caller passes (CUDA when it passes none); the demo, a module of the
+  package, leaves ``sys.path`` alone.
 """
 
 import ast
@@ -46,9 +52,22 @@ COPIED = [
     # The node and the client.
     "service.py", "server.py", "placement_daemon.py", "client/__init__.py",
     "client/pool.py",
-    # The live harness.
-    "utils/routing_live.py",
+    # The live harnesses.
+    "utils/routing_live.py", "utils/affinity_live.py",
+    # The durable backends: SQLite, then Postgres (each a subclass of its SQLite
+    # form) and Redis, for membership, placement, state, reminders and streams.
+    "utils/sqlite.py", "object_placement/sqlite.py", "cluster/storage/sqlite.py",
+    "state/sqlite.py", "reminders/sqlite.py", "streams/sqlite.py",
+    "utils/pg.py", "cluster/storage/postgres.py", "object_placement/postgres.py",
+    "state/postgres.py", "reminders/postgres.py", "streams/postgres.py",
+    "utils/resp.py", "cluster/storage/redis.py", "object_placement/redis.py",
+    "state/redis.py", "reminders/redis.py", "streams/redis.py",
+    # The affinity feedback loop's demo.
+    "examples/affinity.py",
 ]
+
+# Port files whose reference sits elsewhere than the same path under rio_tpu/.
+REFERENCE_PATH = {"examples/affinity.py": "examples/affinity.py"}
 
 # file -> (lines only in the reference, lines only in the port, the reason)
 DELIBERATE = {
@@ -59,6 +78,44 @@ DELIBERATE = {
             "        _SO.parent.mkdir(parents=True, exist_ok=True)",
         ],
         "the port builds the shared source into its own git-ignored directory",
+    ),
+    "utils/affinity_live.py": (
+        [
+            "from ..object_placement.jax_placement import JaxObjectPlacement",
+            "async def measure_affinity_payoff(*, n_records: int=256, pad_bytes: int=4096, "
+            "redelivery_period: float=0.25, transport: str='asyncio', affinity_weight: float=2.0, "
+            "affinity_host_factor: float=0.05, drain_timeout: float=60.0) -> dict:",
+            "    placement = JaxObjectPlacement(node_axis_size=4, mode='greedy', "
+            "affinity_weight=affinity_weight, affinity_host_factor=affinity_host_factor)",
+        ],
+        [
+            "from ..object_placement.torch_placement import TorchObjectPlacement",
+            "async def measure_affinity_payoff(*, n_records: int=256, pad_bytes: int=4096, "
+            "redelivery_period: float=0.25, transport: str='asyncio', affinity_weight: float=2.0, "
+            "affinity_host_factor: float=0.05, drain_timeout: float=60.0, device=None) -> dict:",
+            "    placement = TorchObjectPlacement(node_axis_size=4, mode='greedy', "
+            "affinity_weight=affinity_weight, affinity_host_factor=affinity_host_factor, device=device)",
+        ],
+        "the port's provider, on the device the caller names",
+    ),
+    "examples/affinity.py": (
+        [
+            "sys.path.insert(0, '.')",
+            "from rio_tpu.object_placement.jax_placement import JaxObjectPlacement",
+            "async def main() -> dict:",
+            "    placement = JaxObjectPlacement(node_axis_size=4, mode='greedy', "
+            "affinity_weight=2.0, affinity_host_factor=0.05)",
+            "    asyncio.run(main())",
+        ],
+        [
+            "from rio_tpu.object_placement.torch_placement import TorchObjectPlacement",
+            "async def main(device=None) -> dict:",
+            "    placement = TorchObjectPlacement(node_axis_size=4, mode='greedy', "
+            "affinity_weight=2.0, affinity_host_factor=0.05, device=device)",
+            "    asyncio.run(main(sys.argv[1] if len(sys.argv) > 1 else None))",
+        ],
+        "the port's provider on a device named by the caller; a package module runs "
+        "with ``python -m`` and leaves sys.path alone",
     ),
 }
 
@@ -103,13 +160,14 @@ def _normalised_lines(path: pathlib.Path) -> list[str]:
 
 
 def test_the_copy_list_names_50_files_once_each():
-    assert len(COPIED) == len(set(COPIED)) == 50
+    assert len(COPIED) == len(set(COPIED)) == 70
     assert set(DELIBERATE) <= set(COPIED)
+    assert set(REFERENCE_PATH) <= set(COPIED)
 
 
 @pytest.mark.parametrize("rel", COPIED)
 def test_the_port_file_is_the_reference_file(rel):
-    ref = _normalised_lines(ROOT / "rio_tpu" / rel)
+    ref = _normalised_lines(ROOT / REFERENCE_PATH.get(rel, f"rio_tpu/{rel}"))
     port = _normalised_lines(ROOT / "rio_tpu_torch" / rel)
     only_ref, only_port = [], []
     for line in difflib.ndiff(ref, port):

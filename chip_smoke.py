@@ -191,7 +191,7 @@ Phases, each printing one JSON line:
    ``SqliteState`` behind 8,192 ``DurableCounter`` s; each phase with both kernels' launch
    counts (0) and ``reduced`` (the cut of the object count and its cause):
 
-   - ``durable_row2``: 73,000 echo objects (cut from 100,000: ``DUR_OBJ``) and the
+   - ``durable_row2``: 59,000 echo objects (cut from 100,000: ``DUR_OBJ``) and the
      counters (one acknowledged ``Add`` each) allocated through a client; the
      write-behind drained (the backing writes and commits one row at a time); the
      file read back through a second
@@ -246,6 +246,36 @@ Phases, each printing one JSON line:
    longest idle gaps with the host span open across each. The main-path trace must
    hold 90 launches of ``scaling_rows_kernel`` and the log-domain trace 30 of
    ``logdomain_rows_kernel``: a trace with no device event fails the phase.
+
+22. the ``runtime`` group, after the device phases have freed the card's memory: the
+   port's runtime on the card's host, with no device (``rio_tpu_torch.bench``'s runtime
+   tiers, ``bench.py``'s host stages). The native library is built once first, so no
+   two worker processes build it at once. Each phase prints the card's fields, ``host``
+   (cores, affinity mask, load average) and both kernels' launch counts over the group
+   so far (0):
+
+   - ``runtime_import``: fresh interpreters with a clean environment import
+     ``rio_tpu_torch.sharded``, ``rio_tpu_torch.autoscale.provision`` and
+     ``rio_tpu_torch.server`` (``rio_tpu_torch.utils.import_probe``, median of 3); the
+     import's and the process's seconds, and torch not loaded;
+   - ``sharded_smoke``: ``python -m rio_tpu_torch.sharded --smoke`` and ``--smoke
+     --shard-aware`` exit 0 with the reference's fields, the front door's requests
+     served by both workers (``spread``), no redirect for the shard-aware client;
+   - ``rpc``: ``rpc_throughput`` (2 servers, 64 senders x 600, ``asyncio`` and
+     ``native``), ``rpc_egress`` and ``rpc_sharded`` (N = max(2, min(4, cores)) workers,
+     128 objects, 2 loadgen children x 16 senders x 200; the 1-worker, batch-decode,
+     shard-aware and engine A/Bs): every rate > 0, no redirect for the shard-aware
+     clients, N workers, the engine A/B present when the native library built. One
+     paired batch for each A/B where ``bench.py`` runs 3 or 5 (``RT_REDUCED``), never
+     fewer workers or smaller windows;
+   - ``runtime_tiers``: ``migration_drain``, ``hotkey_scaleout``, the five
+     ``*_overhead`` tiers, ``streams_throughput``, ``qos_stage`` and
+     ``autoscale_stage`` at ``bench.py``'s sizes but 6 paired batches where it runs 24
+     and QoS's ``fast`` counts (``RT_REDUCED``), each with its seconds, held to the
+     reference's outcome bars: every object moved in both drain modes, no staleness
+     violation in either hot-key mode, equal deliveries off and on, no interactive shed,
+     armed fault lookups > 0, and in the ramp soak no lost acknowledged write and a
+     scale-out, scale-in and retire in that order.
 
 Then the ``kernels`` line and, last, ``{"ok": true, "device": {...}}``. Any failed
 check raises, so the script exits non-zero and prints no result. Without a CUDA
@@ -328,16 +358,17 @@ LIVE_SERVERS, LIVE_OBJ, LIVE_SAMPLE, LIVE_COUNTERS = 8, 100_000, 4_000, 8_192
 CHURN_OBJ = 50_000
 # The durable group: BASELINE row 2 on SQLite (the live group's 8 servers, 8,192
 # counters and 4,000 sampled ids), 1,000 new ids after the restart. The backing
-# writes and commits one row at a time. On an H100 80GB HBM3 host at 700 W, three
-# runs wrote 1,016.11-1,476.41 us a row; the one at 100,000 objects took 126.8 s,
-# over the 120 s budget. The echo objects are cut to what 120 s of writes allow at
-# the slowest reading (120 s / 1,476.41 us = 81,277 rows, less the 8,192 counters,
-# rounded down). The phase prints the rate its own run measured as ``us_per_row``.
-DUR_OBJ, DUR_NEW = 73_000, 1_000
+# writes and commits one row at a time. On an H100 80GB HBM3 host at 700 W, runs
+# wrote 1,016.11-1,476.41 us a row; the one at 100,000 objects took 126.8 s. The
+# echo objects are cut to what 100 s of writes allow at the slowest reading
+# (100 s / 1,476.41 us = 67,731 rows, less the 8,192 counters, rounded down): the
+# budget was 120 s (73,000 objects) until the runtime group took the script to
+# 855.3 s. The phase prints the rate its own run measured as ``us_per_row``.
+DUR_OBJ, DUR_NEW = 59_000, 1_000
 DUR_REDUCED = {
     "objects": [LIVE_OBJ, DUR_OBJ], "sized_at_us_per_row": 1476.41,
     "sized_from": "the slowest of three earlier runs' writes (1016.11-1476.41 us a row)",
-    "flush_budget_s": 120.0,
+    "flush_budget_s": 100.0,
     "cause": "one row written and committed per update (the trait's update_batch)",
 }
 # The affinity_live group: affinity_live.py's sizes (256 records x 4,096 B, 2 servers,
@@ -345,6 +376,23 @@ DUR_REDUCED = {
 AFF_LIVE_RATIO = 2.0
 # The profile phase: main-path steps in its window.
 PROFILE_MAIN_STEPS = 3
+# The runtime group: bench.py's host stages at its sizes, but fewer paired batches
+# in every A/B, to keep the script under 900 s (on an H100 80GB HBM3 host at 700 W
+# the group took 302.6 s at 2 batches for egress and sharded and bench.py's counts
+# elsewhere). The worker count, every window's and every batch's size stay
+# bench.py's; the full battery runs in ``python -m rio_tpu_torch.bench --rpc ...``.
+RT_EGRESS_BATCHES = 1
+RT_SHARDED_BATCHES = {"ab_batches": 1, "decode_batches": 1, "aware_batches": 1}
+RT_OVERHEAD_BATCHES = 6  # tracing, journal, series, spans, faults and the autoscale idle A/B
+RT_REDUCED = {
+    "rpc_egress": {"batches": [5, RT_EGRESS_BATCHES]},
+    "rpc_sharded": {"one_worker_and_engine_batches": [3, RT_SHARDED_BATCHES["ab_batches"]],
+                    "batch_decode_batches": [5, RT_SHARDED_BATCHES["decode_batches"]],
+                    "shard_aware_batches": [3, RT_SHARDED_BATCHES["aware_batches"]]},
+    "overhead_batches": [24, RT_OVERHEAD_BATCHES],
+    "qos": "fast: 16 uniform batches and 40 flood probes, not 48 and 80",
+    "cause": "the script's 900 s; the full battery runs in python -m rio_tpu_torch.bench",
+}
 
 
 def emit(phase: str, **fields) -> None:
@@ -1685,6 +1733,137 @@ def affinity_live_phases(dev, card: dict) -> None:
     emit("affinity_demo", **card, provider_device=str(dev), **demo, launches=launches)
 
 
+def _check_rates(values, what: str) -> int:
+    """Every rate in ``values`` (a number, or a list or dict of them) > 0; how many."""
+    flat = list(values.values()) if isinstance(values, dict) else \
+        list(values) if isinstance(values, list) else [values]
+    for r in flat:
+        check(isinstance(r, (int, float)) and r > 0, f"{what}: rate {r}")
+    return len(flat)
+
+
+def _scale_chain_order(chain: list[str]) -> list[str]:
+    """The first scale_out, scale_in and retired of the ramp's journal chain, in order."""
+    firsts: list[str] = []
+    for entry in chain:
+        action = entry.split(":", 1)[0]
+        if action in ("scale_out", "scale_in", "retired") and action not in firsts:
+            firsts.append(action)
+    return firsts
+
+
+def runtime_phases(card: dict) -> None:
+    """The ``runtime`` group (phase 22): the runtime's processes and host stages, no device."""
+    import os
+
+    from rio_tpu_torch import bench as B
+    from rio_tpu_torch import native
+    from rio_tpu_torch.utils.import_probe import probe
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    _reset_launches()
+    t0 = time.perf_counter()
+    native_built = native.get() is not None  # once, before any worker process loads it
+    native_s = time.perf_counter() - t0
+
+    # -- runtime_import ------------------------------------------------------------
+    modules = ["rio_tpu_torch.sharded", "rio_tpu_torch.autoscale.provision", "rio_tpu_torch.server"]
+    imported = probe(modules, root)
+    check(imported["loaded"] == [], f"importing the runtime loaded {imported['loaded']}")
+    emit("runtime_import", **card, host=B._host_provenance(), **imported,
+         native_built=native_built, native_build_s=native_s, launches=_read_launches("runtime_import"))
+
+    # -- sharded_smoke -------------------------------------------------------------
+    smokes = {}
+    for name, flags in (("redirect", []), ("shard_aware", ["--shard-aware"])):
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-m", "rio_tpu_torch.sharded", "--smoke", *flags],
+                             cwd=root, capture_output=True, text=True, timeout=120)
+        check(out.returncode == 0, f"sharded smoke {flags} exited {out.returncode}: {out.stderr[-2000:]}")
+        line = next((ln for ln in out.stdout.splitlines() if ln.startswith("SMOKE OK ")), None)
+        check(line is not None, f"sharded smoke {flags} printed no SMOKE OK")
+        result = json.loads(line[len("SMOKE OK "):])
+        check(result["ok"] and result["n"] == 16, f"sharded smoke {result}")
+        check(len(result["spread"]) == 2 and sum(result["spread"].values()) == 16,
+              f"the front door's requests were not served by both workers: {result['spread']}")
+        if flags:
+            check(result["redirects"] == 0 and result["shard_routes"] == 16, f"shard-aware smoke {result}")
+        smokes[name] = {**result, "seconds": time.perf_counter() - t0}
+    emit("sharded_smoke", **card, host=B._host_provenance(), **smokes,
+         launches=_read_launches("sharded_smoke"))
+
+    # -- rpc -------------------------------------------------------------------------
+    n_workers = max(2, min(4, os.cpu_count() or 1))
+    baseline = B.sqlite_baseline_rate()
+    seconds = {}
+    t0 = time.perf_counter()
+    rpc = B.rpc_throughput(baseline)
+    seconds["rpc_throughput"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    egress = B.rpc_egress(baseline, batches=RT_EGRESS_BATCHES)
+    seconds["rpc_egress"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sharded = B.rpc_sharded(baseline, **RT_SHARDED_BATCHES)
+    seconds["rpc_sharded"] = time.perf_counter() - t0
+    transports = ["asyncio"] + (["native"] if native_built else [])
+    rates = sum(_check_rates(rpc[t], f"rpc_throughput {t}") for t in transports)
+    for t in transports:
+        rates += _check_rates(egress[t]["per_frame"] + egress[t]["coalesced"], f"rpc_egress {t}")
+    one, decode, agg = sharded["one_worker"], sharded["batch_decode"], sharded["n_workers"]
+    rates += _check_rates(one["plain_1proc"] + one["sharded_1worker"], "rpc_sharded one_worker")
+    rates += _check_rates(decode["off"] + decode["on"], "rpc_sharded batch_decode")
+    rates += _check_rates([agg["aggregate_rate"]] + [g["rate"] for g in agg["generators"]],
+                          "rpc_sharded n_workers")
+    check(("native" in rpc) == native_built, f"rpc_throughput transports {sorted(rpc)}")
+    aware = sharded["shard_aware"]
+    check(aware["redirects"]["shard_aware"] == 0, f"shard-aware clients paid redirects: {aware['redirects']}")
+    check(aware["shard_routes"] > 0, "no shard-aware client dialled its shard directly")
+    check(sharded["n_workers"]["n_workers"] == aware["n_workers"] == n_workers,
+          f"sharded ran {sharded['n_workers']['n_workers']} workers, want {n_workers}")
+    rates += _check_rates(aware["redirect_routed"] + aware["shard_aware"], "rpc_sharded shard_aware")
+    if native_built:
+        engine = sharded.get("engine", {"error": "missing"})
+        check("error" not in engine, f"engine A/B {engine}")
+        rates += _check_rates(engine["asyncio"] + engine["native"], "rpc_sharded engine")
+    emit("rpc", **card, host=B._host_provenance(), reduced=RT_REDUCED, sqlite_baseline=baseline,
+         rpc_msgs_per_sec=rpc, rpc_egress=egress, rpc_sharded=sharded, rates_checked=rates,
+         seconds=seconds, launches=_read_launches("rpc"))
+
+    # -- runtime_tiers -------------------------------------------------------------
+    tiers, seconds = {}, {}
+    cut = {"batches": RT_OVERHEAD_BATCHES}
+    for flag, kwargs in (("migration", {}), ("hotkey", {}), ("tracing", cut), ("journal", cut),
+                         ("series", cut), ("spans", cut), ("faults", cut), ("streams", {}),
+                         ("qos", {"fast": True}), ("autoscale", cut)):
+        key, tier = B.RUNTIME_TIERS[flag]
+        t0 = time.perf_counter()
+        tiers[key] = tier(**kwargs)
+        seconds[key] = time.perf_counter() - t0
+    mig = tiers["migration_drain"]
+    for mode in ("per_key", "batched"):
+        check(mig[mode]["moved"] == mig["n_objects"], f"migration {mode} moved {mig[mode]['moved']}")
+    for mode in ("baseline", "replica_reads"):
+        check(tiers["hotkey"][mode]["staleness_violations"] == 0, f"hot-key {mode}: {tiers['hotkey'][mode]}")
+    streams = tiers["streams"]["delivered"]
+    check(streams["off"] == streams["on"] > 0, f"streams delivered {streams}")
+    check(tiers["qos"]["flood"]["interactive_sheds_on"] == 0, f"qos flood {tiers['qos']['flood']}")
+    check(tiers["faults"]["lookup_ops_per_sec"]["armed_idle"] > 0, f"faults {tiers['faults']}")
+    ramp = tiers["autoscale"]["ramp"]
+    check(ramp["lost"] == 0, f"the ramp lost acknowledged writes: {ramp}")
+    check(_scale_chain_order(ramp["chain"]) == ["scale_out", "scale_in", "retired"],
+          f"the ramp's journal chain {ramp['chain']}")
+    _check_rates([mig[mode]["migrations_per_sec"] for mode in ("per_key", "batched")], "migration")
+    for key in ("tracing", "journal", "series", "spans", "faults"):
+        _check_rates(tiers[key]["msgs_per_sec"], key)
+    _check_rates(tiers["faults"]["lookup_ops_per_sec"], "faults lookups")
+    _check_rates(tiers["streams"]["publish_acks_per_sec"], "streams publish")
+    _check_rates(tiers["streams"]["deliver_msgs_per_sec"], "streams deliver")
+    _check_rates(tiers["qos"]["uniform"]["msgs_per_sec"], "qos uniform")
+    _check_rates(tiers["autoscale"]["idle"]["msgs_per_sec"], "autoscale idle")
+    emit("runtime_tiers", **card, host=B._host_provenance(), reduced=RT_REDUCED, **tiers, seconds=seconds,
+         launches=_read_launches("runtime_tiers"))
+
+
 def run_tier(fn, what: str, kernel_ok: bool = False):
     """Run one bench tier with both kernel counts at 0: its result, the counts
     read just after and its peak device memory. Unless ``kernel_ok``, a tier
@@ -2316,6 +2495,10 @@ def main() -> int:
     # -- 21. the device's idle share ---------------------------------------------
     torch.cuda.empty_cache()
     asyncio.run(profile_phase(dev, card))
+
+    # -- 22. the runtime's processes and host stages, after the card's memory is freed --
+    torch.cuda.empty_cache()
+    runtime_phases(card)
 
     print(json.dumps({"kernels": [{
         "name": "fused_scaling_iteration",

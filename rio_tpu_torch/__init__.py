@@ -21,11 +21,12 @@ The package imports neither ``jax`` nor any module of ``rio_tpu``. Entry points 
 ``device="cpu"`` (:func:`rio_tpu_torch.device.resolve_device`).
 
 This module re-exports the runtime's prelude, the names of
-``rio_tpu/__init__.py`` (but ``ShardedServer``: the sharded data plane is
-not ported), and :func:`resolve_device`.
+``rio_tpu/__init__.py``, and :func:`resolve_device`. Importing it, or any
+module of the runtime, leaves torch unloaded, as importing ``rio_tpu``
+leaves jax: ``resolve_device``, ``ShardedServer`` and the fault surface
+load on first use.
 """
 
-from .device import resolve_device
 from .app_data import AppData
 from .client import Client, ClientBuilder
 from .client.pool import ClientPool
@@ -95,8 +96,18 @@ _FAULTS_EXPORTS = frozenset(
 
 
 def __getattr__(name: str):
-    # Lazy: ``python -m rio_tpu_torch.faults --demo`` executes the module
-    # as __main__; an eager import here would load it twice.
+    # Lazy: ``python -m rio_tpu_torch.sharded`` and ``python -m rio_tpu_torch.faults
+    # --demo`` execute their module as __main__; an eager import here would load
+    # it twice (runpy's double-exec warning).
+    if name == "ShardedServer":
+        from .sharded import ShardedServer
+
+        return ShardedServer
+    if name == "resolve_device":
+        # Lazy: it imports torch, which no node of the runtime needs.
+        from .device import resolve_device
+
+        return resolve_device
     if name in _FAULTS_EXPORTS:
         from . import faults
 
@@ -157,6 +168,7 @@ __all__ = [
     "ServerBusy",
     "ServerInfo",
     "ServiceObject",
+    "ShardedServer",
     "ShardMap",
     "ShardRouter",
     "shard_of",

@@ -41,9 +41,8 @@ Design rules (each one an operational lesson from the TPU rounds):
 Every decision and actuation edge is a ``SCALE`` journal event carrying
 the trigger rule, the gauge evidence, and the chosen node — ``python -m
 rio_tpu_torch.admin scale`` renders policy state, cooldowns, and the recent
-decision log. The port carries this module alone: the reference's
-``provision`` backends and its ``--demo`` smoke are not copied, so the
-caller brings its own :class:`NodeProvisioner`.
+decision log; ``python -m rio_tpu_torch.autoscale --demo`` is the self-checking
+smoke (one scale-out, one clean scale-in, causal journal).
 """
 
 from __future__ import annotations
@@ -247,9 +246,11 @@ class ScalePolicy:
 class NodeProvisioner:
     """Actuation backend: where nodes come from and go to.
 
-    The reference's ``rio_tpu.autoscale.provision`` has two (servers as
-    tasks in this loop; real OS processes joining shared storage); the
-    port copies neither. A backend implements the same four methods.
+    Implementations: :class:`~rio_tpu_torch.autoscale.provision.
+    InProcessProvisioner` (servers as tasks in this loop — tests, the
+    ``--demo`` smoke) and :class:`~rio_tpu_torch.autoscale.provision.
+    SubprocessProvisioner` (real OS processes joining shared storage —
+    soaks, chaos). A cloud backend implements the same four methods.
     """
 
     async def provision(self) -> str:

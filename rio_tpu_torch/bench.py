@@ -1,7 +1,9 @@
-"""The tiers of ``bench.py`` on the port: placements/sec on one CUDA card, route hops live.
+"""The tiers of ``bench.py`` on the port: placements/sec on one CUDA card, route hops live, host stages.
 
     python -m rio_tpu_torch.bench [--tier N] [--collapsed] [--delta] [--hier] [--live] [--affinity]
-                                  [--out PATH]
+                                  [--rpc] [--egress] [--sharded] [--migration] [--hotkey]
+                                  [--tracing] [--journal] [--series] [--spans] [--faults]
+                                  [--streams] [--autoscale] [--qos] [--out PATH]
 
 Each tier is its ``bench.py`` counterpart, named without the leading
 underscore, with the reference's result keys:
@@ -31,6 +33,16 @@ underscore, with the reference's result keys:
 * :func:`affinity_payoff` (``affinity_payoff``): the affinity feedback
   loop on two live servers, blind vs affinity-fed placement on
   :class:`TorchObjectPlacement`, and the edge sampler's cost.
+* the runtime tiers, ``bench.py``'s host stages at its sizes, with its
+  result keys, on the port's runtime and no device: :func:`rpc_throughput`,
+  :func:`rpc_egress`, :func:`rpc_sharded` (worker processes of
+  :class:`~rio_tpu_torch.sharded.ShardedServer` driven by
+  ``python -m rio_tpu_torch.sharded --loadgen`` children),
+  :func:`migration_drain`, :func:`hotkey_scaleout`, :func:`tracing_overhead`,
+  :func:`journal_overhead`, :func:`series_overhead`, :func:`spans_overhead`,
+  :func:`faults_overhead`, :func:`streams_throughput`,
+  :func:`autoscale_stage` and :func:`qos_stage` (:data:`RUNTIME_TIERS`).
+  Only their in-session ratios compare across runs.
 
 Timing is the reference's measurement without its relay defences. A single
 call ends in ``torch.cuda.synchronize()`` and is the best of 3 after a warm
@@ -900,6 +912,562 @@ def affinity_payoff(device=None) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# The runtime tiers: live clusters on the card's host, no device
+# ---------------------------------------------------------------------------
+
+# ``bench.py``'s sizes. Tests patch them smaller.
+RPC_REQUESTS_PER_WORKER = 600  # per sender of the 64 of measure_rpc_throughput
+SHARDED_WINDOW = {"n_workers": 32, "requests_per_worker": 300, "n_objects": 128}
+SHARDED_LOADGEN = {"n_gens": 2, "n_workers": 16, "requests_per_worker": 200, "n_objects": 128}
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def prepare_node_storage(data_dir: str) -> None:
+    """Create a sharded node's SQLite membership and directory before its workers start.
+
+    N workers that open a fresh file at once each switch it to WAL, and
+    ``PRAGMA journal_mode=WAL`` fails at once with "database is locked",
+    busy timeout or not, while a peer holds a write lock: a worker then
+    exits during bring-up (the reference's ``utils/sqlite.py`` and its copy
+    alike; ROADMAP C.8). A file already in WAL mode makes the pragma a no-op.
+    """
+    from .sharded import sqlite_members, sqlite_placement
+
+    async def prepare() -> None:
+        for factory in (sqlite_members, sqlite_placement):
+            store = factory(data_dir)
+            try:
+                await store.prepare()
+            finally:
+                store.close()
+
+    asyncio.run(prepare())
+
+
+def rpc_throughput(baseline: float | None = None) -> dict:
+    """Actor data-plane msgs/sec per transport (2 servers, 64 senders), also on stderr.
+
+    Every rate is anchored to the SQLite baseline measured in the same
+    session (``{transport}_vs_sqlite``): a host's absolute rate drifts
+    between sessions, the in-session ratio does not.
+    """
+    from . import native
+    from .utils.routing_live import measure_rpc_throughput
+
+    if baseline is None:
+        baseline = sqlite_baseline_rate()
+    transports = ["asyncio"] + (["native"] if native.get() is not None else [])
+    rates: dict = {
+        "sqlite_baseline_in_session": round(baseline),
+        "host": _host_provenance(),
+    }
+    for transport in transports:
+        rate = asyncio.run(
+            measure_rpc_throughput(transport=transport, requests_per_worker=RPC_REQUESTS_PER_WORKER)
+        )
+        rates[transport] = round(rate)
+        rates[f"{transport}_vs_sqlite"] = round(rate / baseline, 3)
+        note = ""
+        if transport == "native" and not native.engine_profitable():
+            note = " (engine demoted: single-core host, thread handoff is pure loss)"
+        print(
+            f"# rpc throughput ({transport}, 2 servers, 64 workers): {rate:,.0f} msgs/sec = "
+            f"{rate / baseline:.2f}x in-session sqlite baseline{note}",
+            file=sys.stderr,
+        )
+    return rates
+
+
+def rpc_egress(baseline: float | None = None, *, batches: int = 5) -> dict:
+    """Egress coalescing on vs off (one write per done-callback wave vs one per frame).
+
+    The load of :func:`rpc_throughput`; the knob gates the same seam in both
+    transports, so both are measured when the native library builds.
+    ``batches`` interleaved pairs, median per-batch ratio.
+    """
+    import statistics
+
+    from . import aio, native
+    from .utils.routing_live import measure_rpc_throughput
+
+    if baseline is None:
+        baseline = sqlite_baseline_rate()
+    try:
+        from .native import transport as native_transport
+    except Exception:  # pragma: no cover - native build unavailable
+        native_transport = None
+
+    def set_coalesce(enabled: bool) -> None:
+        aio._EGRESS_COALESCE = enabled
+        if native_transport is not None:
+            native_transport._EGRESS_COALESCE = enabled
+
+    env_default = os.environ.get("RIO_TPU_EGRESS_COALESCE", "1") != "0"
+    out: dict = {
+        "sqlite_baseline_in_session": round(baseline),
+        "host": _host_provenance(),
+    }
+    transports = ["asyncio"] + (["native"] if native.get() is not None else [])
+    try:
+        for transport in transports:
+            per_frame, coalesced = [], []
+            for _ in range(batches):
+                set_coalesce(False)
+                per_frame.append(asyncio.run(measure_rpc_throughput(
+                    transport=transport, requests_per_worker=RPC_REQUESTS_PER_WORKER)))
+                set_coalesce(True)
+                coalesced.append(asyncio.run(measure_rpc_throughput(
+                    transport=transport, requests_per_worker=RPC_REQUESTS_PER_WORKER)))
+            ratio = statistics.median(c / p for p, c in zip(per_frame, coalesced))
+            out[transport] = {
+                "per_frame": [round(r) for r in per_frame],
+                "coalesced": [round(r) for r in coalesced],
+                "coalesced_vs_per_frame": round(ratio, 3),
+                "vs_sqlite": round(coalesced[-1] / baseline, 3),
+            }
+            print(
+                f"# rpc egress ({transport}, coalesced vs per-frame flush, paired): "
+                f"{coalesced[-1]:,.0f} vs {per_frame[-1]:,.0f} msgs/sec = {ratio:.3f}x",
+                file=sys.stderr,
+            )
+    finally:
+        set_coalesce(env_default)
+    return out
+
+
+def rpc_sharded(
+    baseline: float | None = None,
+    *,
+    ab_batches: int = 3,
+    decode_batches: int = 5,
+    aware_batches: int = 3,
+) -> dict:
+    """The sharded data plane's battery: real worker processes on loopback.
+
+    Every pair is interleaved in the same session, and ``host`` records the
+    cores the stage had:
+
+    * ``one_worker``: 1 sharded worker (front door, identity port, shard
+      router) vs 1 plain server child, ``ab_batches`` pairs;
+    * ``batch_decode``: the per-read batch decode on vs off
+      (``RIO_TPU_BATCH_DECODE``), ``decode_batches`` pairs;
+    * ``n_workers``: the aggregate through N = max(2, min(4, cores)) workers,
+      driven by ``python -m rio_tpu_torch.sharded --loadgen`` children;
+    * ``shard_aware``: the same N-worker loadgen shape with clients that
+      compute the shard themselves vs redirect-following ones,
+      ``aware_batches`` pairs, and the audit: shard-aware clients pay no
+      redirect for unplaced traffic;
+    * ``engine``: N workers on the native transport vs asyncio (identity
+      ports only), when the native library builds.
+
+    The native library is built in this process first (``native.get()``),
+    so no two children build it at once.
+    """
+    import shutil
+    import statistics
+    import tempfile
+
+    from . import native
+    from .sharded import ShardedServer, sqlite_members
+    from .utils.routing_live import measure_rpc_external
+
+    if baseline is None:
+        baseline = sqlite_baseline_rate()
+    have_native = native.get() is not None
+    base_env = {
+        "PATH": os.environ.get("PATH", "/usr/bin:/bin"),
+        "HOME": os.environ.get("HOME", "/tmp"),
+        "PYTHONPATH": _ROOT,
+    }
+    echo = "rio_tpu_torch.utils.routing_live:build_echo_registry"
+    nodes: list = []
+    tmps: list[str] = []
+
+    def boot(workers, *, router=True, front_door=True, env=None, server_kwargs=None):
+        tmp = tempfile.mkdtemp(prefix="rio_sharded_bench_")
+        tmps.append(tmp)
+        prepare_node_storage(tmp)
+        node = ShardedServer(
+            address="127.0.0.1:0", workers=workers, registry=echo, data_dir=tmp,
+            router=router, front_door=front_door, env=env, server_kwargs=server_kwargs,
+        )
+        node.start()
+        nodes.append(node)
+        asyncio.run(node.wait_ready(60.0))
+        return node
+
+    def window(node):
+        members = sqlite_members(node.data_dir)
+        try:
+            return asyncio.run(measure_rpc_external(members, **SHARDED_WINDOW))
+        finally:
+            members.close()
+
+    def paired(node_a, node_b, batches):
+        """Interleaved A/B windows; median per-batch ratio b/a."""
+        ra, rb = [], []
+        for _ in range(batches):
+            ra.append(window(node_a))
+            rb.append(window(node_b))
+        ratio = statistics.median(b / a for a, b in zip(ra, rb))
+        return [round(r) for r in ra], [round(r) for r in rb], round(ratio, 3)
+
+    def loadgen_aggregate(node, shard_aware=False, tag="lg"):
+        """Concurrent measured windows from separate loadgen processes."""
+        procs = []
+        for g in range(SHARDED_LOADGEN["n_gens"]):
+            p = subprocess.Popen(
+                [sys.executable, "-m", "rio_tpu_torch.sharded", "--loadgen"],
+                stdin=subprocess.PIPE, stdout=subprocess.PIPE, env=base_env, text=True,
+            )
+            spec = {
+                "members": node.members_spec, "data_dir": node.data_dir,
+                "n_objects": SHARDED_LOADGEN["n_objects"],
+                "n_workers": SHARDED_LOADGEN["n_workers"],
+                "requests_per_worker": SHARDED_LOADGEN["requests_per_worker"],
+                "prefix": f"{tag}{g}", "shard_aware": shard_aware,
+            }
+            p.stdin.write(json.dumps(spec) + "\n")
+            p.stdin.flush()
+            procs.append(p)
+        try:
+            for p in procs:  # all generators warm before any measures
+                assert "WARM" in p.stdout.readline()
+            for p in procs:  # GO
+                p.stdin.write("\n")
+                p.stdin.flush()
+            gens = []
+            for p in procs:
+                for line in p.stdout:
+                    if line.startswith("RESULT "):
+                        gens.append(json.loads(line[len("RESULT "):]))
+                        break
+                p.wait(timeout=60)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        return {
+            "aggregate_rate": round(sum(g["rate"] for g in gens)),
+            "redirects": sum(g.get("redirects", 0) for g in gens),
+            "shard_routes": sum(g.get("shard_routes", 0) for g in gens),
+            "generators": gens,
+        }
+
+    out: dict = {
+        "sqlite_baseline_in_session": round(baseline),
+        "host": _host_provenance(),
+        "engine_profitable": native.engine_profitable(),
+    }
+    try:
+        n = max(2, min(4, os.cpu_count() or 1))
+        plain = boot(1, router=False, front_door=False)
+        sharded1 = boot(1)
+        pr, sr, ratio = paired(plain, sharded1, ab_batches)
+        out["one_worker"] = {
+            "plain_1proc": pr, "sharded_1worker": sr, "sharded_vs_plain": ratio,
+            "vs_sqlite": round(sr[-1] / baseline, 3),
+        }
+        print(
+            f"# rpc sharded (1 worker vs plain child, paired): "
+            f"{sr[-1]:,.0f} vs {pr[-1]:,.0f} msgs/sec = {ratio:.3f}x",
+            file=sys.stderr,
+        )
+
+        decode_off = boot(1, env={**base_env, "RIO_TPU_BATCH_DECODE": "0"})
+        offr, onr, on_vs_off = paired(decode_off, sharded1, decode_batches)
+        out["batch_decode"] = {"off": offr, "on": onr, "on_vs_off": on_vs_off}
+        print(
+            f"# rpc sharded (batch decode on vs off, paired): "
+            f"{onr[-1]:,.0f} vs {offr[-1]:,.0f} msgs/sec = {on_vs_off:.3f}x",
+            file=sys.stderr,
+        )
+
+        node_n = boot(n)
+        agg = loadgen_aggregate(node_n)
+        agg["n_workers"] = n
+        agg["vs_sqlite"] = round(agg["aggregate_rate"] / baseline, 3)
+        out["n_workers"] = agg
+        print(
+            f"# rpc sharded ({n} workers, {len(agg['generators'])} loadgen procs): "
+            f"{agg['aggregate_rate']:,.0f} msgs/sec aggregate "
+            f"({agg['vs_sqlite']:.2f}x in-session sqlite baseline)",
+            file=sys.stderr,
+        )
+
+        # Fresh object prefixes per batch keep the traffic unplaced, so the
+        # audit reads the claim exactly: shard-aware clients pay no redirect.
+        rr_rates, sa_rates = [], []
+        rr_redirects = sa_redirects = sa_routes = 0
+        for b in range(aware_batches):
+            a = loadgen_aggregate(node_n, shard_aware=False, tag=f"rd{b}g")
+            s = loadgen_aggregate(node_n, shard_aware=True, tag=f"sa{b}g")
+            rr_rates.append(a["aggregate_rate"])
+            sa_rates.append(s["aggregate_rate"])
+            rr_redirects += a["redirects"]
+            sa_redirects += s["redirects"]
+            sa_routes += s["shard_routes"]
+        sa_ratio = statistics.median(s / a for a, s in zip(rr_rates, sa_rates))
+        out["shard_aware"] = {
+            "n_workers": n,
+            "redirect_routed": rr_rates,
+            "shard_aware": sa_rates,
+            "shard_aware_vs_redirect": round(sa_ratio, 3),
+            "redirects": {"redirect_routed": rr_redirects, "shard_aware": sa_redirects},
+            "shard_routes": sa_routes,
+        }
+        print(
+            f"# rpc sharded ({n} workers, shard-aware vs redirect-routed clients, paired): "
+            f"{sa_rates[-1]:,.0f} vs {rr_rates[-1]:,.0f} msgs/sec aggregate = {sa_ratio:.3f}x; "
+            f"redirects {sa_redirects} vs {rr_redirects}, {sa_routes} direct shard dials",
+            file=sys.stderr,
+        )
+
+        if have_native:
+            try:
+                node_async = boot(n, front_door=False)
+                node_native = boot(n, front_door=False, server_kwargs={"transport": "native"})
+                ar, nr, native_vs = paired(node_async, node_native, ab_batches)
+                out["engine"] = {"asyncio": ar, "native": nr, "native_vs_asyncio": native_vs}
+                print(
+                    f"# rpc sharded ({n} workers, native vs asyncio transport, paired): "
+                    f"{nr[-1]:,.0f} vs {ar[-1]:,.0f} msgs/sec = {native_vs:.3f}x "
+                    f"(engine_profitable={out['engine_profitable']})",
+                    file=sys.stderr,
+                )
+            except Exception as e:
+                # The workers' logs go with their temporary directory below.
+                dead = {f"worker{i}": nodes[-1].worker_log(i)[-4000:]
+                        for i, p in enumerate(nodes[-1].procs) if p.poll() is not None}
+                out["engine"] = {"error": repr(e), "dead_worker_logs": dead}
+                print(f"# rpc sharded engine A/B failed: {e!r} {dead}", file=sys.stderr)
+    finally:
+        for node in nodes:
+            try:
+                node.stop()
+            except Exception:
+                pass
+        for tmp in tmps:
+            shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def migration_drain() -> dict:
+    """A 1,000-object drain, batched with prefetch vs per key, in one session."""
+    from .utils.migration_live import measure_migration_drain
+
+    out = asyncio.run(measure_migration_drain())
+    pk, bt = out["per_key"], out["batched"]
+    print(
+        f"# migration drain ({out['n_objects']} objects x {out['payload_bytes']} B volatile "
+        f"state, 2 servers): batched+prefetch {bt['migrations_per_sec']:,.0f}/s (pinned mean "
+        f"{bt['pinned_ms_mean']} ms, {bt['bursts']} bursts, {bt['prefetch_hits']} prefetch hits) "
+        f"vs per-key {pk['migrations_per_sec']:,.0f}/s (pinned mean {pk['pinned_ms_mean']} ms) = "
+        f"{out.get('speedup', 0):.2f}x, pinned-window ratio {out.get('pinned_window_ratio', 0):.3f}",
+        file=sys.stderr,
+    )
+    return out
+
+
+def hotkey_scaleout() -> dict:
+    """Hot-key read p99, replica reads vs read-through-primary, on one seeded zipf stream."""
+    from .utils.hotkey_live import measure_hotkey
+
+    out = asyncio.run(measure_hotkey())
+    base, rep = out["baseline"], out["replica_reads"]
+    print(
+        f"# hot-key read scale-out ({out['n_requests']} reqs @ {out['rate_per_sec']:,.0f}/s "
+        f"open loop, hot key {out['hot_fraction']:.0%} of stream, {out['work_ms']:.0f} ms/read, "
+        f"3 servers): replica reads hot p99 {rep['hot_p99_ms']:,.1f} ms "
+        f"({rep.get('standby_reads', 0)} standby reads, {rep.get('read_sheds', 0)} sheds, "
+        f"{rep.get('stale_refusals', 0)} stale refusals) vs read-through-primary "
+        f"{base['hot_p99_ms']:,.1f} ms = {out.get('hot_p99_ratio', 0):.3f}x",
+        file=sys.stderr,
+    )
+    return out
+
+
+def tracing_overhead(**sizes) -> dict:
+    """The RPC loop with spans disabled vs record-only vs sampled at 1.0 with a sink.
+
+    ``sizes`` go to the harness (``batches=``); none runs ``bench.py``'s."""
+    from .utils.tracing_live import measure_tracing_overhead
+
+    out = asyncio.run(measure_tracing_overhead(**sizes))
+    m = out["msgs_per_sec"]
+    print(
+        f"# tracing overhead ({out['batches']} interleaved batches x "
+        f"{out['n_requests_per_batch']} reqs, 2 servers/mode, median paired ratio): disabled "
+        f"{m['disabled']:,.0f}/s, record-only {m['record']:,.0f}/s "
+        f"({out['record_overhead_pct']:+}%), sampled@1.0+sink {m['sampled']:,.0f}/s "
+        f"({out['sampled_overhead_pct']:+}%)",
+        file=sys.stderr,
+    )
+    return out
+
+
+def journal_overhead(**sizes) -> dict:
+    """The RPC loop with ``journal=False`` vs the default journal (bar: <= ~2%); ``sizes`` as above."""
+    from .utils.journal_live import measure_journal_overhead
+
+    out = asyncio.run(measure_journal_overhead(**sizes))
+    m = out["msgs_per_sec"]
+    print(
+        f"# journal overhead ({out['batches']} interleaved batches x "
+        f"{out['n_requests_per_batch']} reqs, 2 servers/mode, median paired ratio): off "
+        f"{m['off']:,.0f}/s, on {m['on']:,.0f}/s ({out['journal_overhead_pct']:+}%, "
+        f"{out['events_recorded_on']} control events recorded)",
+        file=sys.stderr,
+    )
+    return out
+
+
+def faults_overhead(**sizes) -> dict:
+    """Bare storages vs the same wrapped around a disabled fault schedule, and the lookup ladder."""
+    from .utils.faults_live import measure_faults_overhead
+
+    out = asyncio.run(measure_faults_overhead(**sizes))
+    out["host"] = _host_provenance()
+    m = out["msgs_per_sec"]
+    lk = out["lookup_ops_per_sec"]
+    print(
+        f"# faults overhead ({out['batches']} interleaved batches x "
+        f"{out['n_requests_per_batch']} reqs, 2 servers/mode, median paired ratio): off "
+        f"{m['off']:,.0f}/s, on {m['on']:,.0f}/s ({out['faults_overhead_pct']:+}%); trait "
+        f"lookup bare {lk['bare']:,.0f}/s, disabled {lk['disabled']:,.0f}/s "
+        f"({out['lookup_overhead_disabled_pct']:+}%), armed-idle {lk['armed_idle']:,.0f}/s "
+        f"({out['lookup_overhead_armed_idle_pct']:+}%)",
+        file=sys.stderr,
+    )
+    return out
+
+
+def autoscale_stage(**idle_sizes) -> dict:
+    """Autoscaling's idle cost (absent vs armed but pinned) and the ramp soak.
+
+    The soak drives offered load up and back down against a supervisor with
+    a ``SubprocessProvisioner`` (nodes are ``python -m rio_tpu_torch.autoscale
+    --node`` processes) under storage blips and a SIGKILL mid-drain; the
+    harness raises on a lost acked write or a broken journal chain.
+    ``idle_sizes`` go to the idle A/B (``batches=``).
+    """
+    from .utils.autoscale_live import measure_autoscale_idle_overhead, measure_autoscale_ramp
+
+    out: dict = {"idle": asyncio.run(measure_autoscale_idle_overhead(**idle_sizes))}
+    out["ramp"] = asyncio.run(measure_autoscale_ramp())
+    out["host"] = _host_provenance()
+    idle, ramp = out["idle"], out["ramp"]
+    m = idle["msgs_per_sec"]
+    print(
+        f"# autoscale idle overhead ({idle['batches']} interleaved batches x "
+        f"{idle['n_requests_per_batch']} reqs, median paired ratio): off {m['off']:,.0f}/s, on "
+        f"{m['on']:,.0f}/s ({idle['autoscale_overhead_pct']:+}%, {idle['controller_ticks_on']} "
+        f"controller ticks); ramp soak {ramp['seconds']:.0f}s: {ramp['scale_outs']} out / "
+        f"{ramp['scale_ins']} in, {ramp['acked_writes']} acked writes lost={ramp['lost']} "
+        f"(dups {ramp['duplicates']}), p99 {ramp['p99_ms']:.0f} ms, SIGKILL mid-drain "
+        f"{ramp['killed_mid_drain'] or 'NONE'}, {ramp['storage_blips']} storage blips",
+        file=sys.stderr,
+    )
+    return out
+
+
+def streams_throughput() -> dict:
+    """Durable streams: the redelivery backstop idle vs ticking every 0.05 s, zero loss in both."""
+    from .utils.streams_live import measure_streams_overhead
+
+    out = asyncio.run(measure_streams_overhead())
+    out["host"] = _host_provenance()
+    pub, e2e = out["publish_acks_per_sec"], out["deliver_msgs_per_sec"]
+    print(
+        f"# streams throughput ({out['batches']} interleaved batches x "
+        f"{out['publishes_per_batch']} publishes, 2 servers/mode, "
+        f"{out['partitions_active']['on']} partitions, median paired ratio): publish acks off "
+        f"{pub['off']:,.0f}/s, on {pub['on']:,.0f}/s; e2e deliver off {e2e['off']:,.0f}/s, on "
+        f"{e2e['on']:,.0f}/s ({out['redelivery_overhead_pct']:+}% redelivery backstop); zero "
+        f"loss both modes ({out['delivered']['on']} delivered)",
+        file=sys.stderr,
+    )
+    return out
+
+
+def qos_stage(fast: bool = False) -> dict:
+    """QoS: uniform traffic off vs the default config, and interactive p99 under a bulk flood.
+
+    ``fast`` is the harness's: 16 paired batches and 40 probes, not 48 and 80."""
+    from .utils.qos_live import measure_qos
+
+    out = asyncio.run(measure_qos(fast=fast))
+    out["host"] = _host_provenance()
+    u, f = out["uniform"], out["flood"]
+    m = u["msgs_per_sec"]
+    print(
+        f"# qos ({u['batches']} interleaved batches x {u['n_requests_per_batch']} echoes, "
+        f"2 servers/mode): uniform off {m['off']:,.0f}/s, on {m['on']:,.0f}/s "
+        f"({u['qos_overhead_pct']:+}% median paired); flood ({f['bulk_workers']} bulk workers "
+        f"on one hot object, max_concurrent {f['max_concurrent_on']}): interactive p99 off "
+        f"{f['off']['interactive_p99_ms']} ms -> on {f['on']['interactive_p99_ms']} ms "
+        f"({f['interactive_p99_improvement']}x), {f['interactive_sheds_on']} interactive sheds",
+        file=sys.stderr,
+    )
+    return out
+
+
+def series_overhead(**sizes) -> dict:
+    """The RPC loop with ``timeseries=False`` vs sampling every 0.05 s (bar: <= ~1%); ``sizes`` as above."""
+    from .utils.series_live import measure_series_overhead
+
+    out = asyncio.run(measure_series_overhead(**sizes))
+    out["host"] = _host_provenance()
+    m = out["msgs_per_sec"]
+    print(
+        f"# series overhead ({out['batches']} interleaved batches x "
+        f"{out['n_requests_per_batch']} reqs, 2 servers/mode, sampling @"
+        f"{out['sample_interval_s']}s, median paired ratio): off {m['off']:,.0f}/s, on "
+        f"{m['on']:,.0f}/s ({out['series_overhead_pct']:+}%, {out['samples_on']} samples, "
+        f"{out['health_alerts_fired_on']} alerts fired)",
+        file=sys.stderr,
+    )
+    return out
+
+
+def spans_overhead(**sizes) -> dict:
+    """``spans=False`` vs retention with tail capture at a 1 ms SLO (bar: <= ~2%); ``sizes`` as above."""
+    from .utils.spans_live import measure_spans_overhead
+
+    out = asyncio.run(measure_spans_overhead(**sizes))
+    out["host"] = _host_provenance()
+    m = out["msgs_per_sec"]
+    print(
+        f"# spans overhead ({out['batches']} interleaved batches x "
+        f"{out['n_requests_per_batch']} reqs, 2 servers/mode, tail SLO {out['slo_ms']}ms, "
+        f"median paired ratio): off {m['off']:,.0f}/s, on {m['on']:,.0f}/s "
+        f"({out['spans_overhead_pct']:+}%, {out['retained_on']} retained, "
+        f"{out['tail_captured_on']} tail-captured)",
+        file=sys.stderr,
+    )
+    return out
+
+
+# flag -> (detail key, tier), in ``bench.py``'s order of the host stages.
+RUNTIME_TIERS = {
+    "rpc": ("rpc_msgs_per_sec", rpc_throughput),
+    "egress": ("rpc_egress", rpc_egress),
+    "sharded": ("rpc_sharded", rpc_sharded),
+    "migration": ("migration_drain", migration_drain),
+    "hotkey": ("hotkey", hotkey_scaleout),
+    "tracing": ("tracing", tracing_overhead),
+    "journal": ("journal", journal_overhead),
+    "series": ("series", series_overhead),
+    "spans": ("spans", spans_overhead),
+    "faults": ("faults", faults_overhead),
+    "streams": ("streams", streams_throughput),
+    "autoscale": ("autoscale", autoscale_stage),
+    "qos": ("qos", qos_stage),
+}
+
+
+# ---------------------------------------------------------------------------
 # Command line
 # ---------------------------------------------------------------------------
 
@@ -976,10 +1544,13 @@ def headline(detail: dict, baseline: float) -> dict:
 
 
 def main(argv: list[str] | None = None) -> dict:
-    """Run the asked tiers on the card, one JSON line each, then the headline line.
+    """Run the asked tiers, one JSON line each, then the headline line.
 
-    With no tier flag every tier runs. ``--affinity`` alone prints its line
-    and returns its result, with no headline. Raises without a CUDA device.
+    With no tier flag every tier runs. The device tiers raise without a
+    CUDA device; the runtime tiers (``--rpc`` ... ``--qos``) run on the
+    host and need none. ``--affinity`` alone prints its line and returns
+    its result; runtime tiers with no device tier return their results; in
+    both cases with no headline, which only the device and live tiers feed.
     """
     parser = argparse.ArgumentParser(
         prog="python -m rio_tpu_torch.bench", description=__doc__.split("\n\n")[0]
@@ -994,10 +1565,16 @@ def main(argv: list[str] | None = None) -> dict:
                         help="the live tiers: scaled routing, BASELINE row 2 and route hops")
     parser.add_argument("--affinity", action="store_true",
                         help="the affinity feedback loop's payoff and the edge sampler's cost")
+    for flag, (key, tier) in RUNTIME_TIERS.items():
+        parser.add_argument(f"--{flag}", action="store_true",
+                            help=f"runtime tier {tier.__name__} (detail key {key!r})")
     parser.add_argument("--out", default=None, help="also write every result to this JSON file")
     args = parser.parse_args(argv)
-    dev = resolve_device(None)
-    every = not (args.tier or args.collapsed or args.delta or args.hier or args.live or args.affinity)
+    runtime = [flag for flag in RUNTIME_TIERS if getattr(args, flag)]
+    device_asked = bool(args.tier or args.collapsed or args.delta or args.hier or args.live
+                        or args.affinity)
+    every = not (device_asked or runtime)
+    dev = resolve_device(None) if device_asked or every else None
     detail: dict = {}
 
     def emit(name: str, result: dict) -> None:
@@ -1022,19 +1599,32 @@ def main(argv: list[str] | None = None) -> dict:
         emit("delta_tier", delta_churn_rate(1_048_576, device=dev))
     if args.hier or every:
         emit("baseline_row5_hier", hier_rate(10_485_760, device=dev))
+    baseline = None
+    for flag, (key, tier) in RUNTIME_TIERS.items():
+        if flag in runtime or every:
+            if flag in ("rpc", "egress", "sharded"):
+                if baseline is None:
+                    baseline = sqlite_baseline_rate()
+                result = tier(baseline)
+            else:
+                result = tier()
+            result.setdefault("host", _host_provenance())
+            emit(key, result)
     if args.live or every:
         emit("scaled_routing", scaled_route_hops())
         emit("row2_torch_provider", row2_torch_provider_live(dev))
         emit("route_hops", live_route_hops())
     if args.affinity or every:
         emit("affinity", affinity_payoff(dev))
-    if set(detail) == {"affinity"}:
-        # The payoff alone has no placements/sec or hops to head a line with.
+    runtime_keys = {key for key, _tier in RUNTIME_TIERS.values()}
+    if not set(detail) - runtime_keys - {"affinity"}:
+        # Neither the payoff nor a runtime tier has placements/sec or hops
+        # to head a line with.
         if args.out:
             with open(args.out, "w") as fh:
                 json.dump(detail, fh, indent=1)
-        return detail["affinity"]
-    baseline = sqlite_baseline_rate()
+        return detail["affinity"] if set(detail) == {"affinity"} else detail
+    baseline = baseline or sqlite_baseline_rate()
     line = headline(detail, baseline)
     if args.out:
         with open(args.out, "w") as fh:

@@ -9,7 +9,8 @@ in-memory store. The port's provider is
 :class:`~rio_tpu_torch.object_placement.torch_placement.AffinityTracker`
 feeds its hierarchical mode, and
 :class:`~rio_tpu_torch.object_placement.persistent.PersistentTorchObjectPlacement`
-adds write-behind durability on a backing store; all are exported here.
+adds write-behind durability on a backing store; all are exported here and
+loaded on first use, so importing this package does not import torch.
 Its ``update`` reads ``item.object_id`` and ``item.server_address`` by
 attribute, so ``rio_tpu``'s items serve as well as these.
 """
@@ -203,6 +204,19 @@ class LocalObjectPlacement(ObjectPlacement):
         return len(self._placements)
 
 
-# Last: the provider modules import the trait above from this package.
-from .torch_placement import AffinityTracker, TorchObjectPlacement  # noqa: E402
-from .persistent import PersistentTorchObjectPlacement  # noqa: E402
+# The device providers, loaded on first use (PEP 562): they import torch, and
+# the runtime reaches this package on every node without needing them.
+_PROVIDERS = {
+    "AffinityTracker": "torch_placement",
+    "TorchObjectPlacement": "torch_placement",
+    "PersistentTorchObjectPlacement": "persistent",
+}
+
+
+def __getattr__(name: str):
+    module = _PROVIDERS.get(name)
+    if module is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    import importlib
+
+    return getattr(importlib.import_module(f"{__name__}.{module}"), name)

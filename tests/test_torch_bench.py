@@ -309,3 +309,96 @@ def test_headline_reports_measured_hops_when_route_hops_ran():
     assert set(live_only) == {"metric", "value", "unit", "vs_baseline"}
     assert live_only["value"] == 1.0 and live_only["unit"] == "hops" and live_only["vs_baseline"] == 0.5
     assert "measured p99 hops 1 vs 2" in live_only["metric"]
+
+
+# ------------------------------------------------------------- runtime tiers
+
+# The harnesses' small sizes, for both packages; each overrides what the tier passes.
+ECHO_AB = {"batches": 2, "n_workers": 8, "requests_per_batch": 16, "n_objects": 32}
+RUNTIME_SMALL = {
+    "routing_live": {"measure_rpc_throughput": {"n_workers": 4, "requests_per_worker": 10,
+                                                "n_objects": 16},
+                     "measure_rpc_external": {"n_workers": 4, "requests_per_worker": 10,
+                                              "n_objects": 16}},
+    "migration_live": {"measure_migration_drain": {"n_objects": 32, "payload_bytes": 128}},
+    "hotkey_live": {"measure_hotkey": {"n_keys": 12, "n_requests": 60, "rate": 600.0}},
+    "tracing_live": {"measure_tracing_overhead": ECHO_AB},
+    "journal_live": {"measure_journal_overhead": ECHO_AB},
+    "series_live": {"measure_series_overhead": ECHO_AB},
+    "spans_live": {"measure_spans_overhead": {**ECHO_AB, "slo_ms": 0.01}},
+    "faults_live": {"measure_faults_overhead": {**ECHO_AB, "lookup_ops": 1000}},
+    "streams_live": {"measure_streams_overhead": {"batches": 2, "publishes_per_batch": 16,
+                                                  "n_keys": 4}},
+    "qos_live": {"measure_qos_overhead": {**ECHO_AB, "batches": 4},
+                 "measure_qos_flood": {"bulk_workers": 8, "interactive_probes": 8}},
+    "autoscale_live": {"measure_autoscale_idle_overhead": {**ECHO_AB, "batches": 4,
+                                                           "requests_per_batch": 64},
+                       "measure_autoscale_ramp": {"warm_secs": 1.0}},
+}
+
+
+def _shrunk(fn, small: dict):
+    async def run(*args, **kwargs):
+        return await fn(*args, **{**kwargs, **small})
+
+    return run
+
+
+@pytest.fixture
+def small_runtime(monkeypatch):
+    """Both packages' harnesses at small sizes, two sharded workers, the port's
+    sharded windows and load generators small (the reference's children keep
+    bench.py's 16 senders x 200)."""
+    import importlib
+    import os
+
+    for pkg in ("rio_tpu", "rio_tpu_torch"):
+        for module, fns in RUNTIME_SMALL.items():
+            mod = importlib.import_module(f"{pkg}.utils.{module}")
+            for name, small in fns.items():
+                monkeypatch.setattr(mod, name, _shrunk(getattr(mod, name), small))
+    monkeypatch.setattr(os, "cpu_count", lambda: 2)
+    monkeypatch.setattr(port, "RPC_REQUESTS_PER_WORKER", 10)
+    monkeypatch.setattr(port, "SHARDED_WINDOW", {"n_workers": 4, "requests_per_worker": 10,
+                                                 "n_objects": 16})
+    monkeypatch.setattr(port, "SHARDED_LOADGEN", {"n_gens": 2, "n_workers": 4,
+                                                  "requests_per_worker": 10, "n_objects": 16})
+    # Build both native libraries here, before any worker process loads one.
+    import rio_tpu.native
+    import rio_tpu_torch.native
+
+    rio_tpu.native.get()
+    rio_tpu_torch.native.get()
+
+
+def _key_tree(tree):
+    """A result's nested keys; addresses as keys (``hot_served_by``) are data."""
+    if isinstance(tree, dict):
+        return {k: _key_tree(v) for k, v in tree.items() if ":" not in str(k)}
+    if isinstance(tree, list) and tree and isinstance(tree[0], dict):
+        return [_key_tree(tree[0])]
+    return None
+
+
+@pytest.mark.parametrize("flag", list(port.RUNTIME_TIERS))
+def test_each_runtime_tier_returns_the_reference_tiers_keys(flag, small_runtime):
+    key, tier = port.RUNTIME_TIERS[flag]
+    args = (1.0e4,) if flag in ("rpc", "egress", "sharded") else ()
+    got = tier(*args)
+    want = getattr(ref, tier.__name__)(*args)
+    assert _key_tree(got) == _key_tree(want)
+    if flag == "sharded":
+        assert got["n_workers"]["n_workers"] == want["n_workers"]["n_workers"] == 2
+        assert got["shard_aware"]["redirects"]["shard_aware"] == 0
+        assert want["shard_aware"]["redirects"]["shard_aware"] == 0
+
+
+def test_main_runs_a_runtime_tier_without_a_card_and_writes_its_block(small_runtime, tmp_path, capsys):
+    out = tmp_path / "rt.json"
+    result = port.main(["--migration", "--journal", "--out", str(out)])
+    assert set(result) == {"migration_drain", "journal"}
+    written = __import__("json").loads(out.read_text())
+    assert set(written) == {"migration_drain", "journal"}
+    for block in written.values():
+        assert set(block["host"]) == {"cpu_count", "sched_affinity", "loadavg"}
+    assert written["migration_drain"]["batched"]["moved"] == 32

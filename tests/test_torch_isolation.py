@@ -43,7 +43,8 @@ def test_importing_every_module_of_the_port_loads_no_jax():
     assert "rio_tpu_torch.ops.prng" in result["imported"]
     assert "rio_tpu_torch.bench" in result["imported"]
     assert "rio_tpu_torch.profiling" in result["imported"]
-    for name in ("server", "client", "codec", "utils.routing_live", "utils.churn_live",
+    for name in ("server", "client", "codec", "utils.routing_live", "utils.churn_live", "sharded",
+                 "autoscale.provision", "utils.autoscale_live", "utils.tracing_live",
                  "examples.tpu_placement", "placement_daemon", "native", "native.transport",
                  "streams.cursor", "streams.saga", "autoscale", "cluster.storage.http",
                  *BACKENDS, "utils.affinity_live", "examples.affinity"):
@@ -127,3 +128,74 @@ def test_the_port_bench_imports_nothing_of_the_reference_bench():
     # bench.py at the root is the reference; the port keeps its own copies.
     roots = set(_imported_roots(ROOT / "rio_tpu_torch" / "bench.py"))
     assert "bench" not in roots and not FORBIDDEN & roots
+
+
+# The runtime's modules: every process of a cluster (a server, a sharded worker, a
+# load generator, an autoscaled node) imports only these, and none loads torch, as
+# none of the reference's loads jax. Modules that compute on tensors import torch.
+RUNTIME_MODULES = [
+    "rio_tpu_torch", "server", "client", "placement_daemon", "migration", "replication",
+    "affinity", "autoscale", "qos", "streams", "admin", *BACKENDS, "sharded",
+    "autoscale.provision", "autoscale.__main__", "utils.routing_live", "utils.routing_sim",
+    "utils.loop", "utils.autoscale_live", "utils.faults_live", "utils.hotkey_live",
+    "utils.journal_live", "utils.migration_live", "utils.qos_live", "utils.series_live",
+    "utils.spans_live", "utils.streams_live", "utils.tracing_live", "utils.churn_live",
+    "utils.durable_live",
+]
+
+_IMPORT_ONE = """
+import importlib, json, sys
+importlib.import_module(sys.argv[1])
+print(json.dumps(sorted(n for n in sys.modules if n.split(".")[0] in ("torch", "jax", "rio_tpu"))))
+"""
+
+
+@pytest.mark.parametrize("name", RUNTIME_MODULES)
+def test_importing_a_runtime_module_leaves_torch_unloaded(name):
+    module = name if name == "rio_tpu_torch" else f"rio_tpu_torch.{name}"
+    out = subprocess.run(
+        [sys.executable, "-c", _IMPORT_ONE, module],
+        cwd=ROOT, capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+_RESOLVE_LAZY = """
+import json, sys
+import rio_tpu_torch, rio_tpu_torch.object_placement as op
+before = "torch" in sys.modules
+obj = getattr(rio_tpu_torch if sys.argv[1] == "resolve_device" else op, sys.argv[1])
+print(json.dumps({"before": before, "after": "torch" in sys.modules,
+                  "module": obj.__module__, "name": obj.__name__}))
+"""
+
+
+@pytest.mark.parametrize("name, module", [
+    ("resolve_device", "rio_tpu_torch.device"),
+    ("TorchObjectPlacement", "rio_tpu_torch.object_placement.torch_placement"),
+    ("AffinityTracker", "rio_tpu_torch.object_placement.torch_placement"),
+    ("PersistentTorchObjectPlacement", "rio_tpu_torch.object_placement.persistent"),
+])
+def test_the_lazy_names_resolve_and_then_load_torch(name, module):
+    out = subprocess.run(
+        [sys.executable, "-c", _RESOLVE_LAZY, name],
+        cwd=ROOT, capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got == {"before": False, "after": True, "module": module, "name": name}
+
+
+def test_from_import_of_the_lazy_names_is_the_providers_class():
+    from rio_tpu_torch import resolve_device
+    from rio_tpu_torch.device import resolve_device as direct
+    from rio_tpu_torch.object_placement import PersistentTorchObjectPlacement, TorchObjectPlacement
+    from rio_tpu_torch.object_placement.persistent import PersistentTorchObjectPlacement as P
+    from rio_tpu_torch.object_placement.torch_placement import TorchObjectPlacement as T
+
+    assert (resolve_device, TorchObjectPlacement, PersistentTorchObjectPlacement) == (direct, T, P)
+    with pytest.raises(AttributeError):
+        import rio_tpu_torch.object_placement as op
+
+        op.NoSuchProvider  # noqa: B018

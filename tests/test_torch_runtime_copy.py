@@ -1,6 +1,6 @@
-"""The port's actor runtime and durable backends are ``rio_tpu``'s, copied word for word.
+"""The port's actor runtime, durable backends and harnesses are ``rio_tpu``'s, copied word for word.
 
-Each of the 70 files below sits at the same path under ``rio_tpu_torch/``
+Each of the 85 files below sits at the same path under ``rio_tpu_torch/``
 as under ``rio_tpu/`` (the affinity demo, ``examples/affinity.py``, sits
 at the repo's root in the reference). With docstrings stripped, and
 ``rio_tpu_torch`` read as ``rio_tpu`` in import names and string constants,
@@ -64,6 +64,14 @@ COPIED = [
     "state/redis.py", "reminders/redis.py", "streams/redis.py",
     # The affinity feedback loop's demo.
     "examples/affinity.py",
+    # The sharded multi-process data plane and the autoscale provisioners with
+    # their worker entry and demo.
+    "sharded.py", "autoscale/provision.py", "autoscale/__main__.py",
+    # The runtime harnesses that bench.py's runtime tiers run, and their helpers.
+    "utils/autoscale_live.py", "utils/faults_live.py", "utils/hotkey_live.py",
+    "utils/journal_live.py", "utils/migration_live.py", "utils/qos_live.py",
+    "utils/series_live.py", "utils/spans_live.py", "utils/streams_live.py",
+    "utils/tracing_live.py", "utils/routing_sim.py", "utils/loop.py",
 ]
 
 # Port files whose reference sits elsewhere than the same path under rio_tpu/.
@@ -159,8 +167,8 @@ def _normalised_lines(path: pathlib.Path) -> list[str]:
     return ast.unparse(tree).splitlines()
 
 
-def test_the_copy_list_names_50_files_once_each():
-    assert len(COPIED) == len(set(COPIED)) == 70
+def test_the_copy_list_names_85_distinct_files():
+    assert len(COPIED) == len(set(COPIED)) == 85
     assert set(DELIBERATE) <= set(COPIED)
     assert set(REFERENCE_PATH) <= set(COPIED)
 
@@ -180,10 +188,8 @@ def test_the_port_file_is_the_reference_file(rel):
 
 
 # Modules of the reference that a copied file imports but the port does not
-# carry, each with what reaches it: nothing on a Server's or a Client's path.
-NOT_COPIED = {
-    "rio_tpu_torch.autoscale.provision": "admin.py's `scale --demo`: the reference's provisioners",
-}
+# carry, each with what reaches it. Every one is carried now.
+NOT_COPIED = {}
 
 
 def _relative_imports(rel):
@@ -244,7 +250,7 @@ def test_the_package_exports_the_references_prelude():
     import rio_tpu
     import rio_tpu_torch
 
-    assert set(rio_tpu_torch.__all__) == (set(rio_tpu.__all__) - {"ShardedServer"}) | {"resolve_device"}
+    assert set(rio_tpu_torch.__all__) == set(rio_tpu.__all__) | {"resolve_device"}
     for name in rio_tpu_torch.__all__:
         assert getattr(rio_tpu_torch, name) is not None, name
     assert rio_tpu_torch.ObjectId("A", "1") == rio_tpu_torch.registry.ObjectId("A", "1")

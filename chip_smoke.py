@@ -277,6 +277,28 @@ Phases, each printing one JSON line:
      armed fault lookups > 0, and in the ramp soak no lost acknowledged write and a
      scale-out, scale-in and retire in that order.
 
+23. the ``examples`` group: the last tier, examples and tool of the port, on the card,
+   each phase with both kernels' launch counts (0: the reference runs neither kernel
+   on these paths):
+
+   - ``mesh_ab``: ``rio_tpu_torch.bench.hier_mesh_ab`` at ``bench.py``'s sizes,
+     2,097,152 rows (``PRNGKey(18)``'s draws) x 1,024 nodes, 32 groups:
+     ``mesh_chunked_hierarchical_assign_timed`` over 8 shards of the card in 65,536-row
+     cells against ``chunked_hierarchical_assign_timed`` in 524,288-row chunks, 4
+     chunks each: no overflow in either arm, a transport-cost ratio within 5% of 1;
+   - ``multihost_solve``: ``rio_tpu_torch.examples.multihost_solve`` as a process group
+     of one (NCCL) over 8 shards of the card, 32,768 objects on 64 nodes, node 5 dead:
+     no row on the dead node, no overflow, live loads within 10% of fair;
+   - ``migration_demo``: ``rio_tpu_torch.examples.migration`` with its provider on the
+     card: ``(total, streak)`` reads (3, 3), then (4, 4) after the admin migrate and
+     (5, 5) after cordon + rebalance;
+   - ``endurance``: ``python -m rio_tpu_torch.tools.endurance --route-small --cordon
+     --persistent`` (3 servers, 8 workers, 2,000 counters) in a fresh process, **cut**
+     to 12 s with churn and samples every 3 s (``reduced``): no error, the SQLite
+     backing equal to the directory, RSS warm and final printed (the tool's
+     ``ru_maxrss``, which includes the peak of this process, and the child's
+     ``VmRSS`` at its end).
+
 Then the ``kernels`` line and, last, ``{"ok": true, "device": {...}}``. Any failed
 check raises, so the script exits non-zero and prints no result. Without a CUDA
 device it exits 1 at once.
@@ -393,6 +415,40 @@ RT_REDUCED = {
     "qos": "fast: 16 uniform batches and 40 flood probes, not 48 and 80",
     "cause": "the script's 900 s; the full battery runs in python -m rio_tpu_torch.bench",
 }
+
+# The examples group: bench.py's hier_mesh_ab at its sizes (2,097,152 rows x 1,024
+# nodes, 32 groups, 8 shards of 65,536-row cells against 524,288-row chunks) with the
+# reference capture's bars (no overflow, a transport-cost ratio within 5% of 1);
+# examples/multihost_solve.py's 8 shards under one NCCL process; examples/migration.py;
+# tools/endurance.py with --route-small --cordon --persistent, cut from its 60 minutes
+# (churn every 45 s, a sample every 60 s) to 12 s with churn and samples every 3 s: on
+# an H100 80GB HBM3 host at 700 W the script took 920.5 s with a 30 s run (churn every
+# 6 s), over its 900 s.
+AB_RATIO_SLACK = 0.05
+END_MINUTES, END_CHURN_S, END_SAMPLE_S = 0.2, 3.0, 3.0
+END_REDUCED = {
+    "minutes": [60, END_MINUTES], "churn_every_s": [45.0, END_CHURN_S],
+    "sample_every_s": [60.0, END_SAMPLE_S],
+    "cause": "the script's 900 s; a 10-minute run is made apart from the script",
+}
+# Runs python -m rio_tpu_torch.tools.endurance in a fresh process and prints, after
+# its summary, both kernels' launch counts there and its resident set at the end:
+# the tool's own RSS is ru_maxrss, which a process started from this one inherits
+# (the peak of the process it was forked from).
+_ENDURANCE_CHILD = """
+import json, runpy, sys
+from rio_tpu_torch.ops import scaling as S
+from rio_tpu_torch.ops.pallas_sinkhorn import fused_iteration
+S.fused_scaling_iteration.launches = 0
+fused_iteration.launches = 0
+sys.argv = ["rio_tpu_torch.tools.endurance", *sys.argv[1:]]
+runpy.run_module("rio_tpu_torch.tools.endurance", run_name="__main__", alter_sys=True)
+with open("/proc/self/status") as f:
+    rss_kb = next(int(ln.split()[1]) for ln in f if ln.startswith("VmRSS:"))
+print(json.dumps({"launches": {"fused_scaling_iteration": S.fused_scaling_iteration.launches,
+                               "fused_iteration": fused_iteration.launches},
+                  "vm_rss_mb": rss_kb / 1024}), flush=True)
+"""
 
 
 def emit(phase: str, **fields) -> None:
@@ -1864,6 +1920,114 @@ def runtime_phases(card: dict) -> None:
          launches=_read_launches("runtime_tiers"))
 
 
+def examples_phases(dev, card: dict) -> None:
+    """The ``examples`` group (phase 23): the last tier, examples and tool of the port."""
+    import contextlib
+    import io
+    import os
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from rio_tpu_torch import bench as B
+    from rio_tpu_torch.examples import migration, multihost_solve
+
+    # -- mesh_ab: bench.py's hier_mesh_ab at its sizes -----------------------------
+    t0 = time.perf_counter()
+    ab, ms, launches, peak = measured(lambda: B.hier_mesh_ab(device=dev), "hier_mesh_ab")
+    for arm in ("mesh_chunk", "chunked_only"):
+        check(ab[arm]["overflow"] == 0, f"hier_mesh_ab {arm} overflow {ab[arm]['overflow']}")
+    ratio = ab["transport_cost"]["ratio"]
+    check(abs(ratio - 1.0) <= AB_RATIO_SLACK, f"hier_mesh_ab transport-cost ratio {ratio}")
+    check((ab["mesh_chunk"]["n_chunks"], ab["chunked_only"]["n_chunks"]) == (4, 4),
+          f"hier_mesh_ab chunks {ab['mesh_chunk']['n_chunks']}, {ab['chunked_only']['n_chunks']}")
+    emit("mesh_ab", **card, **ab, wall_ms=ms, peak_bytes=peak, launches=launches,
+         seconds=time.perf_counter() - t0)
+
+    # -- multihost_solve: 8 shards of the card under one NCCL process --------------
+    t0 = time.perf_counter()
+    argv = ["--coordinator", f"127.0.0.1:{free_port()}", "--num-processes", "1", "--process-id", "0",
+            "--device", str(dev)]
+    out = io.StringIO()
+    backends = []
+    init_group = dist.init_process_group
+
+    def recorded_init(backend=None, *args, **kwargs):
+        backends.append(backend)
+        return init_group(backend, *args, **kwargs)
+
+    dist.init_process_group = recorded_init  # multihost.initialize looks it up on the module
+    try:
+        with contextlib.redirect_stdout(out):
+            solved, ms, launches, peak = measured(lambda: multihost_solve.main(argv), "multihost_solve")
+    finally:
+        dist.init_process_group = init_group
+    check(backends == ["nccl" if dev.type == "cuda" else "gloo"], f"multihost_solve joined {backends}")
+    n_live = solved["live_nodes"]
+    fair = solved["n_obj"] / n_live
+    check(solved["dead_node_load"] == 0 and solved["overflow"] == 0, f"multihost_solve {solved}")
+    check((1 - HIER_LOAD_SLACK) * fair <= solved["load_min"] <= solved["load_max"]
+          <= (1 + HIER_LOAD_SLACK) * fair, f"multihost_solve loads {solved}")
+    check(solved["processes"] == 1 and solved["n_obj"] == 32_768, f"multihost_solve {solved}")
+    emit("multihost_solve", **card, **solved, backend=backends[0], world_size=1,
+         printed=out.getvalue().splitlines(), wall_ms=ms, peak_bytes=peak, launches=launches,
+         seconds=time.perf_counter() - t0)
+
+    # -- migration_demo: examples/migration.py with the provider on the card -------
+    t0 = time.perf_counter()
+    made = []
+    provider = migration.TorchObjectPlacement
+
+    class _Recorded(provider):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            made.append(self)
+
+    migration.TorchObjectPlacement = _Recorded
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            _, ms, launches, _ = measured(lambda: asyncio.run(migration.main(dev)), "the migration demo")
+    finally:
+        migration.TorchObjectPlacement = provider
+    printed = out.getvalue().splitlines()
+    pairs = [tuple(int(x) for x in m) for m in re.findall(r"total=(\d+) streak=(\d+)", out.getvalue())]
+    check(len(made) == 1 and made[0].device.type == "cuda", "the migration demo's provider is not on the card")
+    check(pairs == [(3, 3), (4, 4), (5, 5)], f"migration (total, streak) pairs {pairs}")
+    emit("migration_demo", **card, pairs=pairs, directory_device=str(made[0].device),
+         mode=made[0].stats.mode, printed=printed, wall_ms=ms, launches=launches,
+         seconds=time.perf_counter() - t0)
+
+    # -- endurance: tools/endurance.py, cut, with its provider on the card ---------
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="rio_endurance_")
+    try:
+        root = os.path.dirname(os.path.abspath(__file__))
+        flags = ["--minutes", str(END_MINUTES), "--churn-every", str(END_CHURN_S),
+                 "--sample-every", str(END_SAMPLE_S), "--route-small", "--cordon",
+                 "--device", str(dev), "--persistent", os.path.join(tmp, "endurance.db")]
+        run = subprocess.run([sys.executable, "-c", _ENDURANCE_CHILD, *flags], cwd=root,
+                             capture_output=True, text=True, timeout=END_MINUTES * 60 + 180)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(run.returncode == 0, f"endurance exited {run.returncode}: {run.stderr[-2000:]}")
+    lines = [json.loads(ln) for ln in run.stdout.splitlines() if ln.startswith("{")]
+    summary = next(ln for ln in lines if "ok" in ln)
+    child = next(ln for ln in lines if "launches" in ln)
+    launches = child["launches"]
+    samples = [ln for ln in lines if "t_min" in ln]
+    check(sum(launches.values()) == 0, f"endurance launched a kernel: {launches}")
+    check(summary["ok"] and summary["errors"] == 0, f"endurance {summary}")
+    check(summary["backing_convergence"] == "exact", f"endurance backing {summary['backing_convergence']}")
+    check(summary["churn_cycles"] >= 1 and summary["requests"] > 0, f"endurance {summary}")
+    check(summary["rss_warm_mb"] is not None and summary["rss_final_mb"] is not None,
+          f"endurance RSS {summary['rss_warm_mb']}, {summary['rss_final_mb']}")
+    emit("endurance", **card, host=B._host_provenance(), reduced=END_REDUCED, **summary,
+         vm_rss_final_mb=child["vm_rss_mb"], samples=samples, flags=flags[:-1], launches=launches,
+         seconds=time.perf_counter() - t0)
+
+
 def run_tier(fn, what: str, kernel_ok: bool = False):
     """Run one bench tier with both kernel counts at 0: its result, the counts
     read just after and its peak device memory. Unless ``kernel_ok``, a tier
@@ -2499,6 +2663,10 @@ def main() -> int:
     # -- 22. the runtime's processes and host stages, after the card's memory is freed --
     torch.cuda.empty_cache()
     runtime_phases(card)
+
+    # -- 23. the last tier, examples and tool of the port ---------------------------
+    torch.cuda.empty_cache()
+    examples_phases(dev, card)
 
     print(json.dumps({"kernels": [{
         "name": "fused_scaling_iteration",

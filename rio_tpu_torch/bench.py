@@ -1,6 +1,7 @@
 """The tiers of ``bench.py`` on the port: placements/sec on one CUDA card, route hops live, host stages.
 
-    python -m rio_tpu_torch.bench [--tier N] [--collapsed] [--delta] [--hier] [--live] [--affinity]
+    python -m rio_tpu_torch.bench [--tier N] [--collapsed] [--delta] [--hier] [--mesh-ab] [--live]
+                                  [--affinity]
                                   [--rpc] [--egress] [--sharded] [--migration] [--hotkey]
                                   [--tracing] [--journal] [--series] [--spans] [--faults]
                                   [--streams] [--autoscale] [--qos] [--out PATH]
@@ -24,6 +25,9 @@ underscore, with the reference's result keys:
   delta rebalances, A/B, through :class:`TorchObjectPlacement`;
 * :func:`hier_rate` (``_hier_rate``): BASELINE row 5, the two-level solve
   in chunks of 655,360 rows;
+* :func:`hier_mesh_ab` (``hier_mesh_ab``): the mesh x chunk solve over 8
+  shards of the one device against the chunked solve at matched N, with
+  a sampled transport-cost ratio;
 * the live tiers, on the port's own actor runtime over real loopback TCP:
   :func:`row2_torch_provider_live` (``row2_jax_provider_live``, BASELINE
   row 2: 8 servers x 100,000 objects on :class:`TorchObjectPlacement`),
@@ -79,7 +83,14 @@ from .ops.assignment import build_cost_matrix, greedy_balanced_assign, integer_f
 from .ops.scaling import scaling_core_auto, scaling_impl_for
 from .ops.sinkhorn import exact_quota_repair
 from .ops.structured import class_quotas, expand_class_quotas
-from .parallel.hierarchical import chunked_hierarchical_assign, hierarchical_assign
+from .ops import prng
+from .parallel.hierarchical import (
+    chunked_hierarchical_assign,
+    chunked_hierarchical_assign_timed,
+    hierarchical_assign,
+    mesh_chunked_hierarchical_assign_timed,
+)
+from .parallel.mesh import make_mesh
 from .registry import ObjectId
 from .utils.routing_live import measure_route_hops_live, measure_route_hops_scaled
 
@@ -740,6 +751,89 @@ def hier_rate(
         "max_load": int(loads.max()),
         "fair_load": n_obj // n_nodes,
         **extra,
+    }
+
+
+def hier_mesh_ab(
+    n_obj: int = 2_097_152,
+    *,
+    device=None,
+    n_nodes: int = N_NODES,
+    n_groups: int = 32,
+    cell_rows: int = 65_536,
+    chunk_rows: int = 524_288,
+    keep: dict | None = None,
+) -> dict:
+    """The mesh x chunk solve against the chunked-only solve at matched N (``bench.py`` ``hier_mesh_ab``).
+
+    Arm ``mesh_chunk`` runs :func:`mesh_chunked_hierarchical_assign_timed`
+    over 8 shards of the one device in ``cell_rows``-row cells; arm
+    ``chunked_only`` runs :func:`chunked_hierarchical_assign_timed` in
+    ``chunk_rows``-row chunks. The inputs are the reference's own draws
+    from ``PRNGKey(18)`` (:mod:`~rio_tpu_torch.ops.prng`), 16 features a
+    row, made on the device. ``transport_cost`` is each arm's mean
+    best-minus-assigned affinity over 65,536 evenly spaced rows (the whole
+    N x M affinity would be 8 GiB at the default size), and their ratio.
+    With ``keep``, each arm's :class:`HierarchicalResult` is stored under
+    its name.
+    """
+    dev = resolve_device(device)
+    d, n_shards, sample_rows = 16, 8, 65_536
+    if n_obj % (n_shards * cell_rows) or n_obj % chunk_rows:
+        raise ValueError(f"{n_obj} rows split into neither {n_shards} x {cell_rows} cells "
+                         f"nor {chunk_rows}-row chunks")
+    k1, k2 = prng.split(prng.prng_key(18, dev))
+    obj_feat = prng.normal_of(k1, (n_obj, d))
+    node_feat = prng.normal_of(k2, (d, n_nodes)) * 0.2
+    cap = torch.ones(n_nodes, dtype=torch.float32, device=dev)
+    alive = torch.ones(n_nodes, dtype=torch.float32, device=dev)
+    mesh = make_mesh([dev] * n_shards)
+    _sync(dev)  # the draws finish before either arm's clock starts
+
+    def arm(name, fn, n_chunks):
+        t0 = time.perf_counter()
+        res, chunk_ms = fn(obj_feat, node_feat, cap, alive, n_groups=n_groups, n_chunks=n_chunks)
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        if keep is not None:
+            keep[name] = res
+        return res.assignment, {
+            "n_chunks": len(chunk_ms),
+            "first_chunk_ms": chunk_ms[0],
+            "steady_chunk_ms": float(np.median(chunk_ms[1:])) if len(chunk_ms) > 1 else None,
+            "wall_s": wall,
+            "rate": n_obj / wall,
+            "overflow": int(res.overflow),
+            "chunk_ms": chunk_ms,
+        }
+
+    a_mesh, mesh_stats = arm(
+        "mesh_chunk",
+        lambda *a, **kw: mesh_chunked_hierarchical_assign_timed(mesh, *a, **kw),
+        n_obj // (n_shards * cell_rows),
+    )
+    a_chunk, chunk_stats = arm("chunked_only", chunked_hierarchical_assign_timed, n_obj // chunk_rows)
+
+    idx = torch.arange(0, n_obj, max(1, n_obj // sample_rows), device=dev)[:sample_rows]
+    on_s = obj_feat[idx] @ node_feat
+    best = on_s.max(dim=1).values
+    rows = torch.arange(idx.numel(), device=dev)
+    cost_mesh = float((best - on_s[rows, a_mesh[idx].long()]).mean())
+    cost_chunk = float((best - on_s[rows, a_chunk[idx].long()]).mean())
+    return {
+        "n_obj": n_obj,
+        "n_nodes": n_nodes,
+        "n_groups": n_groups,
+        "devices": n_shards,
+        "cell_rows": cell_rows,
+        "mesh_chunk": mesh_stats,
+        "chunked_only": chunk_stats,
+        "transport_cost": {
+            "mesh_chunk": cost_mesh,
+            "chunked_only": cost_chunk,
+            "ratio": cost_mesh / max(cost_chunk, 1e-12),
+        },
+        "host": {**_host_provenance(), **device_fields(dev)},
     }
 
 
@@ -1548,9 +1642,11 @@ def main(argv: list[str] | None = None) -> dict:
 
     With no tier flag every tier runs. The device tiers raise without a
     CUDA device; the runtime tiers (``--rpc`` ... ``--qos``) run on the
-    host and need none. ``--affinity`` alone prints its line and returns
-    its result; runtime tiers with no device tier return their results; in
-    both cases with no headline, which only the device and live tiers feed.
+    host and need none. ``--affinity`` or ``--mesh-ab`` alone prints its
+    line and returns its result (``--hier --mesh-ab`` runs the A/B alone,
+    as in the reference); runtime tiers with no device tier return their
+    results; in both cases with no headline, which only the other device
+    and live tiers feed.
     """
     parser = argparse.ArgumentParser(
         prog="python -m rio_tpu_torch.bench", description=__doc__.split("\n\n")[0]
@@ -1561,6 +1657,8 @@ def main(argv: list[str] | None = None) -> dict:
                         help="the collapsed rebalance, warm-assign and incremental tiers")
     parser.add_argument("--delta", action="store_true", help="the full vs delta rebalance A/B")
     parser.add_argument("--hier", action="store_true", help="BASELINE row 5, hierarchical")
+    parser.add_argument("--mesh-ab", action="store_true",
+                        help="the mesh x chunk vs chunked-only A/B (with --hier: that tier alone)")
     parser.add_argument("--live", action="store_true",
                         help="the live tiers: scaled routing, BASELINE row 2 and route hops")
     parser.add_argument("--affinity", action="store_true",
@@ -1571,8 +1669,8 @@ def main(argv: list[str] | None = None) -> dict:
     parser.add_argument("--out", default=None, help="also write every result to this JSON file")
     args = parser.parse_args(argv)
     runtime = [flag for flag in RUNTIME_TIERS if getattr(args, flag)]
-    device_asked = bool(args.tier or args.collapsed or args.delta or args.hier or args.live
-                        or args.affinity)
+    device_asked = bool(args.tier or args.collapsed or args.delta or args.hier or args.mesh_ab
+                        or args.live or args.affinity)
     every = not (device_asked or runtime)
     dev = resolve_device(None) if device_asked or every else None
     detail: dict = {}
@@ -1597,8 +1695,10 @@ def main(argv: list[str] | None = None) -> dict:
             emit("baseline_row3_1m_x_256", solve_rate(1_048_576, n_nodes=256, n_iters=15, device=dev))
     if args.delta or every:
         emit("delta_tier", delta_churn_rate(1_048_576, device=dev))
-    if args.hier or every:
+    if (args.hier and not args.mesh_ab) or every:
         emit("baseline_row5_hier", hier_rate(10_485_760, device=dev))
+    if args.mesh_ab or every:
+        emit("hier_mesh_ab", hier_mesh_ab(device=dev))
     baseline = None
     for flag, (key, tier) in RUNTIME_TIERS.items():
         if flag in runtime or every:
@@ -1617,13 +1717,14 @@ def main(argv: list[str] | None = None) -> dict:
     if args.affinity or every:
         emit("affinity", affinity_payoff(dev))
     runtime_keys = {key for key, _tier in RUNTIME_TIERS.values()}
-    if not set(detail) - runtime_keys - {"affinity"}:
-        # Neither the payoff nor a runtime tier has placements/sec or hops
-        # to head a line with.
+    alone = {"affinity", "hier_mesh_ab"}
+    if not set(detail) - runtime_keys - alone:
+        # Neither the payoff, the mesh A/B nor a runtime tier has
+        # placements/sec or hops to head a line with.
         if args.out:
             with open(args.out, "w") as fh:
                 json.dump(detail, fh, indent=1)
-        return detail["affinity"] if set(detail) == {"affinity"} else detail
+        return detail[next(iter(detail))] if len(detail) == 1 and set(detail) <= alone else detail
     baseline = baseline or sqlite_baseline_rate()
     line = headline(detail, baseline)
     if args.out:

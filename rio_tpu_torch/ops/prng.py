@@ -13,7 +13,11 @@ of seeds at once, on whatever device the seeds live on:
   XOR of the two output words. A 32-bit seed is the key ``(0, seed)``;
 * :func:`normal` — the bits to floats as ``jax.random.uniform`` maps them
   (23 mantissa bits under exponent 0, minus 1, scaled onto
-  ``[nextafter(-1, 0), 1)``), then ``sqrt(2) * erfinv(u)``.
+  ``[nextafter(-1, 0), 1)``), then ``sqrt(2) * erfinv(u)``;
+* :func:`prng_key`, :func:`split` and :func:`normal_of` — ``jax.random.PRNGKey``,
+  ``jax.random.split`` and the shaped ``jax.random.normal(key, shape)``, for
+  programs that draw their inputs from one key as the reference's do. A key
+  is the pair of 32-bit words ``(k1, k2)``, an ``int64`` tensor of shape (2,).
 
 torch has little unsigned 32-bit arithmetic, so words live in ``int64``
 tensors and every add and rotate is masked back to 32 bits. ``erfinv`` is
@@ -125,3 +129,32 @@ def bits_to_normal(bits: torch.Tensor) -> torch.Tensor:
 def normal(seeds: torch.Tensor, dim: int) -> torch.Tensor:
     """``jax.random.normal(PRNGKey(seed), (dim,))`` for each 32-bit seed: (n, dim) float32."""
     return bits_to_normal(random_bits(seeds, dim))
+
+
+def prng_key(seed: int, device=None) -> torch.Tensor:
+    """``jax.random.PRNGKey(seed)`` with 64-bit types off (JAX's default): ``(0, seed mod 2**32)``."""
+    return torch.tensor([0, int(seed) & _MASK32], dtype=torch.int64, device=device)
+
+
+def _hash_counters(key: torch.Tensor, count: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Threefry of the 64-bit counters ``0 .. count-1``, each split as ``(hi, lo)``."""
+    idx = torch.arange(count, dtype=torch.int64, device=key.device)
+    return threefry2x32(key[0], key[1], idx >> 32, idx & _MASK32)
+
+
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split(key, num)``: (num, 2) int64, key ``i`` the two words of counter ``i``."""
+    x1, x2 = _hash_counters(key, num)
+    return torch.stack([x1, x2], dim=1)
+
+
+def normal_of(key: torch.Tensor, shape) -> torch.Tensor:
+    """``jax.random.normal(key, shape, float32)`` on ``key``'s device.
+
+    Element ``i`` of the flattened shape hashes the counter ``i`` and takes
+    the XOR of the two words (``jax_threefry_partitionable``), then
+    :func:`bits_to_normal`: one pass of elementwise ops over the whole draw.
+    """
+    shape = tuple(int(s) for s in shape)
+    b1, b2 = _hash_counters(key, math.prod(shape))
+    return bits_to_normal(b1 ^ b2).reshape(shape)

@@ -47,7 +47,9 @@ def test_importing_every_module_of_the_port_loads_no_jax():
                  "autoscale.provision", "utils.autoscale_live", "utils.tracing_live",
                  "examples.tpu_placement", "placement_daemon", "native", "native.transport",
                  "streams.cursor", "streams.saga", "autoscale", "cluster.storage.http",
-                 *BACKENDS, "utils.affinity_live", "examples.affinity"):
+                 *BACKENDS, "utils.affinity_live", "examples.affinity", "examples.migration",
+                 "examples.multihost_solve", "tools.endurance", "utils.server_utils",
+                 *RUNTIME_EXAMPLES):
         assert f"rio_tpu_torch.{name}" in result["imported"], name
     assert result["bad"] == [], f"the port loaded {result['bad']}"
 
@@ -57,6 +59,14 @@ BACKENDS = [
     for kind in ("sqlite", "postgres", "redis")
     for family in ("cluster.storage", "object_placement", "state", "reminders", "streams")
 ] + ["utils.sqlite", "utils.pg", "utils.resp"]
+
+# The runtime-only examples, copies of the reference's.
+RUNTIME_EXAMPLES = [
+    f"examples.{name}" for name in (
+        "ping_pong", "black_jack", "custom_storage", "hot_actor", "metric_aggregator",
+        "observability", "presence", "qos", "reminders", "replication", "streams",
+    )
+]
 
 _IMPORT_DURABLE = """
 import importlib, json, sys
@@ -140,7 +150,7 @@ RUNTIME_MODULES = [
     "utils.loop", "utils.autoscale_live", "utils.faults_live", "utils.hotkey_live",
     "utils.journal_live", "utils.migration_live", "utils.qos_live", "utils.series_live",
     "utils.spans_live", "utils.streams_live", "utils.tracing_live", "utils.churn_live",
-    "utils.durable_live",
+    "utils.durable_live", "utils.server_utils", "examples.multihost_solve", *RUNTIME_EXAMPLES,
 ]
 
 _IMPORT_ONE = """

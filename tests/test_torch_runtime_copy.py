@@ -1,11 +1,13 @@
-"""The port's actor runtime, durable backends and harnesses are ``rio_tpu``'s, copied word for word.
+"""The port's actor runtime, durable backends, harnesses and examples are ``rio_tpu``'s, copied word for word.
 
-Each of the 85 files below sits at the same path under ``rio_tpu_torch/``
-as under ``rio_tpu/`` (the affinity demo, ``examples/affinity.py``, sits
-at the repo's root in the reference). With docstrings stripped, and
-``rio_tpu_torch`` read as ``rio_tpu`` in import names and string constants,
-the two files parse to the same tree. Three differences are deliberate, and
-this test names them line for line (as ``ast.unparse`` prints them):
+Each of the 99 files below sits at the same path under ``rio_tpu_torch/``
+as under ``rio_tpu/``, or at the path ``REFERENCE_PATH`` names (the
+examples and ``tools/endurance.py`` sit at the repo's root in the
+reference, and ``utils/server_utils.py`` is ``tests/server_utils.py``).
+With docstrings stripped, and ``rio_tpu_torch`` read as ``rio_tpu`` in
+import names and string constants, the two files parse to the same tree.
+These differences are deliberate, and this test names them line for line
+(as ``ast.unparse`` prints them):
 
 * ``native/__init__.py`` builds the repo's ``native/rio_native.cc`` into
   ``rio_tpu_torch/kernels/_build/`` (git-ignored, made on demand) and
@@ -14,7 +16,14 @@ this test names them line for line (as ``ast.unparse`` prints them):
   ``TorchObjectPlacement`` where the reference builds
   ``JaxObjectPlacement``, with the same keywords and a ``device`` the
   caller passes (CUDA when it passes none); the demo, a module of the
-  package, leaves ``sys.path`` alone.
+  package, leaves ``sys.path`` alone;
+* ``examples/migration.py`` does the same for its ``TorchObjectPlacement``;
+* ``tools/endurance.py`` builds ``TorchObjectPlacement`` or
+  ``PersistentTorchObjectPlacement`` on its ``--device``, patches the
+  port's routing constants for ``--route-small`` and imports the copied
+  cluster harness from the package, with no ``sys.path`` edit;
+* the eleven runtime-only examples leave ``sys.path`` alone, and so import
+  no ``sys``.
 """
 
 import ast
@@ -25,6 +34,13 @@ import re
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
+
+RUNTIME_EXAMPLES = [
+    f"examples/{name}.py" for name in (
+        "ping_pong", "black_jack", "custom_storage", "hot_actor", "metric_aggregator",
+        "observability", "presence", "qos", "reminders", "replication", "streams",
+    )
+]
 
 COPIED = [
     # Wire and identity.
@@ -72,10 +88,20 @@ COPIED = [
     "utils/journal_live.py", "utils/migration_live.py", "utils/qos_live.py",
     "utils/series_live.py", "utils/spans_live.py", "utils/streams_live.py",
     "utils/tracing_live.py", "utils/routing_sim.py", "utils/loop.py",
+    # The live-migration example, the endurance tool and the cluster harness it boots.
+    "examples/migration.py", "tools/endurance.py", "utils/server_utils.py",
+    # The runtime-only examples, the reference's acceptance surface.
+    *RUNTIME_EXAMPLES,
 ]
 
 # Port files whose reference sits elsewhere than the same path under rio_tpu/.
-REFERENCE_PATH = {"examples/affinity.py": "examples/affinity.py"}
+REFERENCE_PATH = {
+    "examples/affinity.py": "examples/affinity.py",
+    "examples/migration.py": "examples/migration.py",
+    "tools/endurance.py": "tools/endurance.py",
+    "utils/server_utils.py": "tests/server_utils.py",
+    **{rel: rel for rel in RUNTIME_EXAMPLES},
+}
 
 # file -> (lines only in the reference, lines only in the port, the reason)
 DELIBERATE = {
@@ -125,6 +151,57 @@ DELIBERATE = {
         "the port's provider on a device named by the caller; a package module runs "
         "with ``python -m`` and leaves sys.path alone",
     ),
+    "examples/migration.py": (
+        [
+            "sys.path.insert(0, '.')",
+            "from rio_tpu.object_placement.jax_placement import JaxObjectPlacement",
+            "async def main() -> None:",
+            "    placement = JaxObjectPlacement(mode='greedy', move_cost=0.5)",
+            "    asyncio.run(main())",
+        ],
+        [
+            "from rio_tpu.object_placement.torch_placement import TorchObjectPlacement",
+            "async def main(device=None) -> None:",
+            "    placement = TorchObjectPlacement(mode='greedy', move_cost=0.5, device=device)",
+            "    asyncio.run(main(sys.argv[1] if len(sys.argv) > 1 else None))",
+        ],
+        "as examples/affinity.py: the port's provider on a device named by the caller, "
+        "sys.path left alone",
+    ),
+    "tools/endurance.py": (
+        [
+            "import os",
+            "sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))",
+            "sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "
+            "'tests'))",
+            "from rio_tpu.object_placement import jax_placement as jp_mod",
+            "from rio_tpu.object_placement.jax_placement import JaxObjectPlacement",
+            "    from server_utils import run_integration_test, wait_for_active_members",
+            "        from rio_tpu.object_placement.persistent import PersistentJaxObjectPlacement",
+            "        placement = PersistentJaxObjectPlacement(SqliteObjectPlacement(args.persistent), "
+            "mode=args.mode, n_iters=10, move_cost=args.move_cost)",
+            "        placement = JaxObjectPlacement(mode=args.mode, n_iters=10, move_cost=args.move_cost)",
+        ],
+        [
+            "from rio_tpu.object_placement import torch_placement as jp_mod",
+            "from rio_tpu.object_placement.torch_placement import TorchObjectPlacement",
+            "    from rio_tpu.utils.server_utils import run_integration_test, wait_for_active_members",
+            "        from rio_tpu.object_placement.persistent import PersistentTorchObjectPlacement",
+            "        placement = PersistentTorchObjectPlacement(SqliteObjectPlacement(args.persistent), "
+            "mode=args.mode, n_iters=10, move_cost=args.move_cost, device=args.device)",
+            "        placement = TorchObjectPlacement(mode=args.mode, n_iters=10, move_cost=args.move_cost, "
+            "device=args.device)",
+            "    ap.add_argument('--device', default=None, help=\"the provider's device (CUDA when not given)\")",
+        ],
+        "the port's providers on a --device (CUDA when not given); --route-small patches the "
+        "port's routing constants; the copied harness is a module of the package, so no "
+        "sys.path edit (and no os)",
+    ),
+    **{
+        rel: (["import sys", "sys.path.insert(0, '.')"], [],
+              "a package module runs with ``python -m`` and leaves sys.path alone (and needs no sys)")
+        for rel in RUNTIME_EXAMPLES
+    },
 }
 
 _PORT_NAME = re.compile(r"(?<![A-Za-z0-9_])rio_tpu_torch")
@@ -168,7 +245,8 @@ def _normalised_lines(path: pathlib.Path) -> list[str]:
 
 
 def test_the_copy_list_names_85_distinct_files():
-    assert len(COPIED) == len(set(COPIED)) == 85
+    """The list's size, 99 files since the examples and the endurance tool joined the 85."""
+    assert len(COPIED) == len(set(COPIED)) == 99
     assert set(DELIBERATE) <= set(COPIED)
     assert set(REFERENCE_PATH) <= set(COPIED)
 

@@ -259,7 +259,8 @@ Phases, each printing one JSON line:
      ``rio_tpu_torch.server`` (``rio_tpu_torch.utils.import_probe``, median of 3); the
      import's and the process's seconds, and torch not loaded;
    - ``sharded_smoke``: ``python -m rio_tpu_torch.sharded --smoke`` and ``--smoke
-     --shard-aware`` exit 0 with the reference's fields, the front door's requests
+     --shard-aware``, each node's SQLite files made first
+     (``rio_tpu_torch.utils.sharded_smoke``), exit 0 with the reference's fields, the front door's requests
      served by both workers (``spread``), no redirect for the shard-aware client;
    - ``rpc``: ``rpc_throughput`` (2 servers, 64 senders x 600, ``asyncio`` and
      ``native``), ``rpc_egress`` and ``rpc_sharded`` (N = max(2, min(4, cores)) workers,
@@ -271,7 +272,9 @@ Phases, each printing one JSON line:
    - ``runtime_tiers``: ``migration_drain``, ``hotkey_scaleout``, the five
      ``*_overhead`` tiers, ``streams_throughput``, ``qos_stage`` and
      ``autoscale_stage`` at ``bench.py``'s sizes but 6 paired batches where it runs 24
-     and QoS's ``fast`` counts (``RT_REDUCED``), each with its seconds, held to the
+     and QoS's ``fast`` counts, the autoscale tier in a fresh process with its ramp's
+     waits bounded and the times of its decisions in ``ramp_marks`` (``RT_REDUCED``,
+     ``RT_RAMP``), each with its seconds, held to the
      reference's outcome bars: every object moved in both drain modes, no staleness
      violation in either hot-key mode, equal deliveries off and on, no interactive shed,
      armed fault lookups > 0, and in the ramp soak no lost acknowledged write and a
@@ -413,8 +416,18 @@ RT_REDUCED = {
                     "shard_aware_batches": [3, RT_SHARDED_BATCHES["aware_batches"]]},
     "overhead_batches": [24, RT_OVERHEAD_BATCHES],
     "qos": "fast: 16 uniform batches and 40 flood probes, not 48 and 80",
+    "autoscale_ramp": {"high_timeout_s": [90.0, 45.0], "settle_timeout_s": [150.0, 60.0]},
     "cause": "the script's 900 s; the full battery runs in python -m rio_tpu_torch.bench",
 }
+# The autoscale tier runs in a fresh process (python -m rio_tpu_torch.utils.ramp_trace,
+# which also prints when the ramp's controller decided what). The ramp scales out
+# once one node serves over 600 requests/s; in this process, after the device
+# groups, one ramp took 74.7 s (an H100 80GB HBM3 host at 700 W; 6.7-9.2 s in a
+# fresh one). Its waits are bounded: the scale-out within 45 s,
+# the scale-in and the return to the floor within 60 s each (the slowest designed
+# path, a drain that fails, its 15 s deadline and a 10 s retire, is under 35 s).
+RT_RAMP = {"high_timeout": RT_REDUCED["autoscale_ramp"]["high_timeout_s"][1],
+           "settle_timeout": RT_REDUCED["autoscale_ramp"]["settle_timeout_s"][1]}
 
 # The examples group: bench.py's hier_mesh_ab at its sizes (2,097,152 rows x 1,024
 # nodes, 32 groups, 8 shards of 65,536-row cells against 524,288-row chunks) with the
@@ -1833,7 +1846,7 @@ def runtime_phases(card: dict) -> None:
     smokes = {}
     for name, flags in (("redirect", []), ("shard_aware", ["--shard-aware"])):
         t0 = time.perf_counter()
-        out = subprocess.run([sys.executable, "-m", "rio_tpu_torch.sharded", "--smoke", *flags],
+        out = subprocess.run([sys.executable, "-m", "rio_tpu_torch.utils.sharded_smoke", *flags],
                              cwd=root, capture_output=True, text=True, timeout=120)
         check(out.returncode == 0, f"sharded smoke {flags} exited {out.returncode}: {out.stderr[-2000:]}")
         line = next((ln for ln in out.stdout.splitlines() if ln.startswith("SMOKE OK ")), None)
@@ -1890,11 +1903,21 @@ def runtime_phases(card: dict) -> None:
     cut = {"batches": RT_OVERHEAD_BATCHES}
     for flag, kwargs in (("migration", {}), ("hotkey", {}), ("tracing", cut), ("journal", cut),
                          ("series", cut), ("spans", cut), ("faults", cut), ("streams", {}),
-                         ("qos", {"fast": True}), ("autoscale", cut)):
+                         ("qos", {"fast": True})):
         key, tier = B.RUNTIME_TIERS[flag]
         t0 = time.perf_counter()
         tiers[key] = tier(**kwargs)
         seconds[key] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "rio_tpu_torch.utils.ramp_trace", "--idle", json.dumps(cut),
+                          "--ramp", json.dumps(RT_RAMP)], cwd=root, capture_output=True, text=True,
+                         timeout=600)
+    check(run.returncode == 0, f"the autoscale tier exited {run.returncode}: {run.stdout[-1000:]} "
+                               f"{run.stderr[-2000:]}")
+    child = json.loads(run.stdout.strip().splitlines()[-1])
+    check(sum(child["launches"].values()) == 0, f"the autoscale tier launched a kernel: {child['launches']}")
+    tiers["autoscale"] = child["result"]
+    seconds["autoscale"] = time.perf_counter() - t0
     mig = tiers["migration_drain"]
     for mode in ("per_key", "batched"):
         check(mig[mode]["moved"] == mig["n_objects"], f"migration {mode} moved {mig[mode]['moved']}")
@@ -1917,7 +1940,8 @@ def runtime_phases(card: dict) -> None:
     _check_rates(tiers["qos"]["uniform"]["msgs_per_sec"], "qos uniform")
     _check_rates(tiers["autoscale"]["idle"]["msgs_per_sec"], "autoscale idle")
     emit("runtime_tiers", **card, host=B._host_provenance(), reduced=RT_REDUCED, **tiers, seconds=seconds,
-         launches=_read_launches("runtime_tiers"))
+         ramp_marks=child["marks"], launches=_read_launches("runtime_tiers"),
+         autoscale_launches=child["launches"])
 
 
 def examples_phases(dev, card: dict) -> None:

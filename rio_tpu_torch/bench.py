@@ -1437,19 +1437,20 @@ def faults_overhead(**sizes) -> dict:
     return out
 
 
-def autoscale_stage(**idle_sizes) -> dict:
+def autoscale_stage(ramp: dict | None = None, **idle_sizes) -> dict:
     """Autoscaling's idle cost (absent vs armed but pinned) and the ramp soak.
 
     The soak drives offered load up and back down against a supervisor with
     a ``SubprocessProvisioner`` (nodes are ``python -m rio_tpu_torch.autoscale
     --node`` processes) under storage blips and a SIGKILL mid-drain; the
     harness raises on a lost acked write or a broken journal chain.
-    ``idle_sizes`` go to the idle A/B (``batches=``).
+    ``idle_sizes`` go to the idle A/B (``batches=``); ``ramp`` holds keywords
+    of ``measure_autoscale_ramp`` (``high_timeout=``, ``settle_timeout=``).
     """
     from .utils.autoscale_live import measure_autoscale_idle_overhead, measure_autoscale_ramp
 
     out: dict = {"idle": asyncio.run(measure_autoscale_idle_overhead(**idle_sizes))}
-    out["ramp"] = asyncio.run(measure_autoscale_ramp())
+    out["ramp"] = asyncio.run(measure_autoscale_ramp(**(ramp or {})))
     out["host"] = _host_provenance()
     idle, ramp = out["idle"], out["ramp"]
     m = idle["msgs_per_sec"]

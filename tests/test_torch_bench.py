@@ -333,7 +333,9 @@ RUNTIME_SMALL = {
                  "measure_qos_flood": {"bulk_workers": 8, "interactive_probes": 8}},
     "autoscale_live": {"measure_autoscale_idle_overhead": {**ECHO_AB, "batches": 4,
                                                            "requests_per_batch": 64},
-                       "measure_autoscale_ramp": {"warm_secs": 1.0}},
+                       # the harness's warm-up; a longer wait for the scale-out,
+                       # which comes once one node serves 600 requests/s
+                       "measure_autoscale_ramp": {"warm_secs": 3.0, "high_timeout": 300.0}},
 }
 
 
@@ -391,6 +393,29 @@ def test_each_runtime_tier_returns_the_reference_tiers_keys(flag, small_runtime)
         assert got["n_workers"]["n_workers"] == want["n_workers"]["n_workers"] == 2
         assert got["shard_aware"]["redirects"]["shard_aware"] == 0
         assert want["shard_aware"]["redirects"]["shard_aware"] == 0
+
+
+def test_autoscale_stage_passes_its_ramp_keywords_on(monkeypatch):
+    from rio_tpu_torch.utils import autoscale_live
+
+    seen = {}
+
+    async def idle(**kwargs):
+        seen["idle"] = kwargs
+        return {"batches": 1, "n_requests_per_batch": 1, "msgs_per_sec": {"off": 1.0, "on": 1.0},
+                "autoscale_overhead_pct": 0.0, "controller_ticks_on": 1}
+
+    async def ramp(**kwargs):
+        seen["ramp"] = kwargs
+        return {"seconds": 1.0, "scale_outs": 1, "scale_ins": 1, "acked_writes": 1, "lost": 0,
+                "duplicates": 0, "p99_ms": 1.0, "killed_mid_drain": "a:1", "storage_blips": 0}
+
+    monkeypatch.setattr(autoscale_live, "measure_autoscale_idle_overhead", idle)
+    monkeypatch.setattr(autoscale_live, "measure_autoscale_ramp", ramp)
+    port.autoscale_stage(ramp={"high_timeout": 45.0}, batches=6)
+    assert seen == {"idle": {"batches": 6}, "ramp": {"high_timeout": 45.0}}
+    port.autoscale_stage()
+    assert seen == {"idle": {}, "ramp": {}}
 
 
 def test_main_runs_a_runtime_tier_without_a_card_and_writes_its_block(small_runtime, tmp_path, capsys):

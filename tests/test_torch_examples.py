@@ -6,7 +6,9 @@
   (8 shards of the CPU) and as two gloo processes over loopback (4 each);
 * ``migration``: both packages print the same ``(total, streak)`` pairs,
   ``(4, 4)`` after the admin migrate and ``(5, 5)`` after cordon +
-  rebalance, and the same move count and coordinator stats;
+  rebalance, and the same move count and coordinator stats; the provider
+  ignores load derates, and a test pins why: in both packages a derate tick
+  during the rebalance's solve discards it;
 * the eleven runtime-only examples exit 0 in both packages, each printing
   the same last line once digits (ports, timings) are masked;
   ``metric_aggregator`` runs as a server process with ``loadall`` and
@@ -14,8 +16,10 @@
 * the rules of ``tests/test_black_jack.py`` and the cases of
   ``tests/test_example_observability.py``, on both packages' modules.
 
-Every subprocess has its own timeout; the two packages' runs of an
-example go side by side.
+Every subprocess has its own timeout. The two packages' runs of an
+example go side by side, but for the runtime-only examples, which run one
+after the other: ``qos`` asserts a latency ratio that two runs competing
+for the cores can break.
 """
 
 import asyncio
@@ -67,6 +71,17 @@ def _side_by_side(commands: dict, cwd: dict | None = None) -> dict:
             if p.poll() is None:
                 p.kill()
                 p.communicate()
+    return out
+
+
+def _one_after_another(commands: dict, cwd: dict | None = None) -> dict:
+    """:func:`_side_by_side`, one command at a time: for examples that time
+    themselves (``qos`` asserts that its interactive p99 is at least 2x
+    better with QoS on), so the two packages' runs do not compete."""
+    cwd = cwd or {}
+    out = {}
+    for k, cmd in commands.items():
+        out.update(_side_by_side({k: cmd}, {k: cwd.get(k, ROOT)}))
     return out
 
 
@@ -137,8 +152,35 @@ _MOVES = re.compile(r"\((\d+) move\)")
 _STATS = re.compile(r"started=(\d+) completed=(\d+) state_bytes=(\d+)")
 
 
+# The example's two servers share one event loop and one provider. Each server's
+# load monitor turns the loop's lag into a capacity derate (``sync_load``); a new
+# derate during the rebalance's solve bumps the provider's epoch and discards the
+# solve, so the example prints "(0 move)" and fails its own assert. How often that
+# happens follows the host's load, not the package (both do it:
+# test_a_derate_tick_during_the_solve_discards_it). So here each example runs with
+# its provider's sync_load a no-op, as tests/test_torch_affinity_live.py runs its.
+_STEADY_PROVIDER = """
+import importlib, runpy, sys
+pkg, target = sys.argv[1], sys.argv[2]
+module, name = {"rio_tpu": ("rio_tpu.object_placement.jax_placement", "JaxObjectPlacement"),
+                "rio_tpu_torch": ("rio_tpu_torch.object_placement.torch_placement",
+                                  "TorchObjectPlacement")}[pkg]
+getattr(importlib.import_module(module), name).sync_load = lambda self, view: None
+sys.argv = [target, *sys.argv[3:]]
+if target.endswith(".py"):
+    runpy.run_path(target, run_name="__main__")
+else:
+    runpy.run_module(target, run_name="__main__", alter_sys=True)
+"""
+
+
+def _with_a_steady_provider(pkg: str, name: str, *args: str) -> list[str]:
+    target = str(ROOT / "examples" / f"{name}.py") if pkg == "rio_tpu" else f"rio_tpu_torch.examples.{name}"
+    return [sys.executable, "-c", _STEADY_PROVIDER, pkg, target, *args]
+
+
 def test_migration_prints_the_references_outcome():
-    runs = _side_by_side({pkg: _command(pkg, "migration", *(["cpu"] if pkg == "rio_tpu_torch" else []))
+    runs = _side_by_side({pkg: _with_a_steady_provider(pkg, "migration", *(["cpu"] if pkg == "rio_tpu_torch" else []))
                           for pkg in PACKAGES})
     outcomes = {}
     for pkg, (rc, stdout, stderr) in runs.items():
@@ -153,6 +195,60 @@ def test_migration_prints_the_references_outcome():
     assert outcomes["rio_tpu"][1] == [1]
 
 
+class _LaggedView:
+    """A load view in which every node's loop lags: derate 0.5, a new 1/8 bucket."""
+
+    def derate(self, address: str) -> float:
+        return 0.5
+
+
+def _provider(pkg: str):
+    if pkg == "rio_tpu":
+        from rio_tpu.object_placement.jax_placement import JaxObjectPlacement
+
+        return JaxObjectPlacement(mode="greedy", move_cost=0.5)
+    from rio_tpu_torch.object_placement import TorchObjectPlacement
+
+    return TorchObjectPlacement(mode="greedy", move_cost=0.5, device="cpu")
+
+
+async def _cordon_and_rebalance(pkg: str, tick_during_solve: bool) -> tuple:
+    """The example's second move on its provider alone: one object on node a,
+    a cordoned, a rebalance into a move sink; with a derate tick, if asked, while
+    the solve runs off the loop."""
+    objects = importlib.import_module(f"{pkg}.object_placement")
+    registry = importlib.import_module(f"{pkg}.registry")
+    placement = _provider(pkg)
+    placement.sync_members(["a:1", "b:2"])
+    await placement.update(objects.ObjectPlacementItem(registry.ObjectId("Visits", "alice"), "a:1"))
+    placement.cordon("a:1")
+    planned = []
+
+    async def sink(moves):
+        planned.extend(moves)
+        return len(moves)
+
+    to_thread = asyncio.to_thread
+
+    async def with_a_tick(fn, *args, **kwargs):
+        placement.sync_load(_LaggedView())
+        return await to_thread(fn, *args, **kwargs)
+
+    if tick_during_solve:
+        asyncio.to_thread = with_a_tick
+    try:
+        moved = await placement.rebalance(move_sink=sink)
+    finally:
+        asyncio.to_thread = to_thread
+    return moved, planned, placement.stats.discarded
+
+
+@pytest.mark.parametrize("pkg", PACKAGES)
+def test_a_derate_tick_during_the_solve_discards_it(pkg):
+    assert asyncio.run(_cordon_and_rebalance(pkg, False)) == (1, [("Visits.alice", "a:1", "b:2")], False)
+    assert asyncio.run(_cordon_and_rebalance(pkg, True)) == (0, [], True)
+
+
 # ---------------------------------------------------- the runtime-only examples
 
 
@@ -163,13 +259,31 @@ def _masked(line: str) -> str:
 @pytest.mark.parametrize("name", RUNTIME_EXAMPLES)
 def test_the_runtime_example_runs_as_the_references_does(name, tmp_path):
     # Apart: an example may write a file into its working directory.
-    runs = _side_by_side({pkg: _command(pkg, name) for pkg in PACKAGES},
-                         cwd={"rio_tpu_torch": tmp_path})
+    runs = _one_after_another({pkg: _command(pkg, name) for pkg in PACKAGES},
+                              cwd={"rio_tpu_torch": tmp_path})
     last = {}
     for pkg, (rc, stdout, stderr) in runs.items():
         assert rc == 0, f"{pkg}: {stderr[-2000:]}"
         last[pkg] = _masked(stdout.strip().splitlines()[-1])
     assert last["rio_tpu_torch"] == last["rio_tpu"]
+
+
+def _wait_for_a_member(pkg: str, db: Path) -> None:
+    """Until the node's membership row is active: it is written once the node
+    runs, after it printed its address."""
+    storage = importlib.import_module(f"{pkg}.cluster.storage.sqlite").SqliteMembershipStorage(str(db))
+
+    async def poll():
+        await storage.prepare()
+        deadline = time.monotonic() + RUN_TIMEOUT_S
+        while not await storage.active_members():
+            assert time.monotonic() < deadline, f"{pkg}: no active member in {db}"
+            await asyncio.sleep(0.05)
+
+    try:
+        asyncio.run(poll())
+    finally:
+        storage.close()
 
 
 def _metric_aggregator(pkg: str, db: Path) -> tuple[str, str]:
@@ -179,7 +293,7 @@ def _metric_aggregator(pkg: str, db: Path) -> tuple[str, str]:
     try:
         line = server.stdout.readline()
         assert line.startswith("[server] metric-aggregator node on "), line
-        time.sleep(0.5)  # the node's membership row is written before it serves
+        _wait_for_a_member(pkg, db)
         outs = []
         for args in (("loadall", "-n", "200"), ("show",)):
             run = subprocess.run(_command(pkg, "metric_aggregator", *args, "--db", str(db)),

@@ -7,8 +7,10 @@ run to run and are not compared; what each harness asserts or counts is:
 the result's keys, the migration drain's moved, bursts and prefetch hits,
 the hot-key stream's staleness violations, the streams' deliveries and
 partitions, the QoS flood's interactive sheds, the journal's recorded
-control events by kind (HEALTH left out), the autoscale ramp's lost writes and its journal chain, the fault
-ladder's armed lookups and the span ring's retention.
+control events by kind (HEALTH left out), the fault ladder's armed lookups
+and the span ring's retention. The autoscale ramp's contract (no lost write,
+a scale-out, a scale-in and a retire in that order) is held on each
+package's result: when its waits end follows the host's load.
 """
 
 import asyncio
@@ -126,11 +128,19 @@ def _autoscale(pkg):
     live = _harness(pkg, "autoscale_live")
     idle = asyncio.run(live.measure_autoscale_idle_overhead(
         batches=4, n_workers=8, requests_per_batch=64, n_objects=32))
-    ramp = asyncio.run(live.measure_autoscale_ramp(warm_secs=1.0))
+    # The ramp scales out once its one node serves over 600 requests/s. On a
+    # loaded host this process may not reach that rate for minutes, so the wait
+    # for it is 300 s here, not the harness's 90; the warm-up (every key served)
+    # keeps the harness's 3 s.
+    ramp = asyncio.run(live.measure_autoscale_ramp(warm_secs=3.0, high_timeout=300.0))
+    # The contract each package guarantees, held on its own result. The chain's
+    # other entries (whether the drain request went through before the SIGKILL)
+    # follow the clock, and killed_mid_drain is set whenever the ramp returns (it
+    # raises otherwise): both stay in the result and are not compared.
+    assert ramp["lost"] == 0 and ramp["duplicates"] >= 0, (pkg, ramp)
+    assert _chain_order(ramp["chain"]) == ["scale_out", "scale_in", "retired"], (pkg, ramp["chain"])
     out = {"idle": idle, "ramp": ramp}
-    return out, (idle["controller_ticks_on"] > 0, ramp["lost"], ramp["duplicates"] >= 0,
-                 ramp["scale_outs"] >= 1, ramp["scale_ins"] >= 1,
-                 bool(ramp["killed_mid_drain"]), _chain_order(ramp["chain"]))
+    return out, (idle["controller_ticks_on"] > 0, ramp["lost"], _chain_order(ramp["chain"]))
 
 
 HARNESSES = {
@@ -180,3 +190,20 @@ def test_the_autoscale_demo_gives_the_references_outcome():
     assert [port[k] for k in counts] == [ref[k] for k in counts] == [1, 1, 1]
     assert [e for e in port["chain"] if e.startswith("scale:")] == \
         [e for e in ref["chain"] if e.startswith("scale:")]
+
+
+def test_ramp_trace_times_the_ramps_decisions():
+    from rio_tpu_torch.utils import ramp_trace
+
+    (out,) = ramp_trace.main(["--idle", json.dumps({**ECHO, "batches": 1}),
+                              "--ramp", json.dumps({"high_timeout": 300.0})])
+    assert "error" not in out, out["error"]
+    ramp = out["result"]["ramp"]
+    assert ramp["lost"] == 0
+    actions = [action for action, _ in out["marks"]]
+    assert actions[:2] == ["provision", "scale_out"], out["marks"]
+    assert _chain_order(actions) == ["scale_out", "scale_in", "retired"], out["marks"]
+    assert [a for a in actions if a != "provision"] == [e.split(":", 1)[0] for e in ramp["chain"]]
+    seconds = [t for _, t in out["marks"]]
+    assert seconds == sorted(seconds) and seconds[0] > 0
+    assert out["launches"] == {"fused_scaling_iteration": 0, "fused_iteration": 0}

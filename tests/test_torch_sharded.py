@@ -706,8 +706,11 @@ def test_the_smoke_cli_passes(flags):
     import subprocess
 
     root = pathlib.Path(__file__).resolve().parent.parent
+    # The smoke's CLI with its node's files made first: its two workers
+    # opening fresh files together fail at random (ROADMAP C, property 8;
+    # test_a_first_connect_during_a_peers_write_fails_at_once_in_both_packages).
     out = subprocess.run(
-        [sys.executable, "-m", "rio_tpu_torch.sharded", "--smoke", *flags],
+        [sys.executable, "-m", "rio_tpu_torch.utils.sharded_smoke", *flags],
         cwd=root, capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stdout + out.stderr

@@ -2193,21 +2193,42 @@ def bench_phases(dev, card: dict, live: dict | None = None) -> int:
     return kernel_launches
 
 
+def window_report(window) -> dict:
+    """A finished ``rio_bench.trace.Tracer``'s idle share, five top device
+    operations and three longest idle gaps, in milliseconds."""
+    from rio_bench.trace import idle_report
+
+    r = idle_report(window.device, window.host, window.window, top=5, gaps=3)
+    return {
+        "window_ms": r["window_us"] / 1e3,
+        "busy_ms": r["busy_us"] / 1e3,
+        "idle_share": 1.0 - r["busy_us"] / r["window_us"],
+        "top_ops": [{"name": n, "ms": us / 1e3} for n, us in r["top_ops"]],
+        "gaps": [{"host": n, "ms": us / 1e3} for n, us in r["gaps"]],
+    }
+
+
+def launch_count(window, fragment: str) -> int:
+    """Device spans of a finished ``Tracer`` whose name holds ``fragment``
+    (a kernel's launches; names in the trace are demangled)."""
+    return sum(fragment in s.name for s in window.device)
+
+
 async def profile_phase(dev, card: dict) -> None:
     """The ``profile`` phase (21): the device's idle share on five paths."""
     import numpy as np
     import torch
 
+    from rio_bench.trace import Tracer
     from rio_tpu_torch import bench as B
     from rio_tpu_torch.entry import logdomain_placement_step, make_problem, placement_step
     from rio_tpu_torch.object_placement.torch_placement import TorchObjectPlacement
     from rio_tpu_torch.parallel.hierarchical import hierarchical_assign
-    from rio_tpu_torch.profiling import DeviceWindow
     from rio_tpu_torch.registry import ObjectId
 
     paths: dict = {}
 
-    def profiled(name: str, fn) -> DeviceWindow:
+    def profiled(name: str, fn) -> Tracer:
         """A warm call, one timed without the profiler (its cost shows beside
         the window), then the profiled window."""
         fn()
@@ -2216,9 +2237,11 @@ async def profile_phase(dev, card: dict) -> None:
         fn()
         torch.cuda.synchronize()
         unprofiled_ms = (time.perf_counter() - t0) * 1e3
-        with DeviceWindow(f"chip_smoke.profile.{name}") as window:
-            fn()
-        paths[name] = {**window.report, "unprofiled_ms": unprofiled_ms}
+        window = Tracer()
+        window.start()
+        fn()
+        window.stop()
+        paths[name] = {**window_report(window), "unprofiled_ms": unprofiled_ms}
         return window
 
     cost, mass, cap = make_problem(N_OBJ, N_NODES, seed=0, device=dev)
@@ -2228,7 +2251,7 @@ async def profile_phase(dev, card: dict) -> None:
             placement_step(cost, mass, cap, eps=EPS, n_iters=N_ITERS, chunk=CHUNK, device=dev)
 
     w = profiled("main_path", main_steps)
-    launches = w.count("scaling_rows_kernel")
+    launches = launch_count(w, "scaling_rows_kernel")
     check(launches == N_ITERS * PROFILE_MAIN_STEPS,
           f"the main-path trace holds {launches} scaling_rows_kernel spans, "
           f"want {N_ITERS * PROFILE_MAIN_STEPS}")
@@ -2236,7 +2259,7 @@ async def profile_phase(dev, card: dict) -> None:
 
     w = profiled("logdomain_path", lambda: logdomain_placement_step(
         cost, mass, cap, eps=EPS, n_iters=N_ITERS, chunk=CHUNK, device=dev))
-    launches = w.count("logdomain_rows_kernel")
+    launches = launch_count(w, "logdomain_rows_kernel")
     check(launches == N_ITERS, f"the log-domain trace holds {launches} logdomain_rows_kernel spans")
     paths["logdomain_path"].update(steps=1, logdomain_rows_kernel=launches)
     del cost, mass, cap
@@ -2265,11 +2288,12 @@ async def profile_phase(dev, card: dict) -> None:
     await p.assign_batch([ObjectId("Prof", str(i)) for i in range(DIR_OBJ)])
     await p.rebalance(delta=False)  # the first solve: the next one starts warm
     p.sync_members([_Member(a, i not in killed) for i, a in enumerate(addrs)])
-    torch.cuda.synchronize()
-    with DeviceWindow("chip_smoke.profile.directory_full") as w:
-        moved = await p.rebalance(delta=False)
+    w = Tracer()
+    w.start()
+    moved = await p.rebalance(delta=False)
+    w.stop()
     check(p.stats.mode == "sinkhorn+collapsed", f"profiled rebalance ran {p.stats.mode}")
-    paths["directory_full"] = {**w.report, "mode": p.stats.mode, "moved": moved,
+    paths["directory_full"] = {**window_report(w), "mode": p.stats.mode, "moved": moved,
                                "solve_ms": p.stats.solve_ms, "apply_ms": p.stats.apply_ms}
     emit("profile", **card, paths=paths)
 

@@ -42,6 +42,7 @@ from .ops.sinkhorn import (
     plan_rounded_assign_from_scaling,
     sinkhorn,
 )
+from .tracing import span
 
 # Rows per block of the row-marginal check (bounds its float32 temporary).
 _ERR_BLOCK_ROWS = 65536
@@ -126,8 +127,12 @@ def repair_to_quota(assignment, cost, cap):
 
 def round_and_repair(cost, mass, cap, u, v, K, *, chunk: int | None = None):
     """Steps 2 and 3 on a solve's state: ``(assignment, mean_cost, row_marginal_err)``."""
-    err = row_marginal_err(K, u, v, mass, cap)
-    assignment, mean_cost = repair_to_quota(round_from_scaling(K, u, v, chunk=chunk), cost, cap)
+    with span("placement.row_check"):
+        err = row_marginal_err(K, u, v, mass, cap)
+    with span("placement.round"):
+        rounded = round_from_scaling(K, u, v, chunk=chunk)
+    with span("placement.repair"):
+        assignment, mean_cost = repair_to_quota(rounded, cost, cap)
     return assignment, mean_cost, err
 
 
@@ -148,14 +153,18 @@ def placement_step(
     ``mean_cost`` is the mean of ``cost[i, assignment[i]]`` (0.50 for a
     random placement on U[0, 1) costs); ``row_marginal_err`` is the solve's
     convergence error (:func:`row_marginal_err`). Inputs move to the
-    resolved device.
+    resolved device. The step and its stages are spans of
+    :mod:`rio_tpu_torch.tracing`: ``placement.step`` around
+    ``scaling.k_build``, ``scaling.iterations``, ``placement.row_check``,
+    ``placement.round`` and ``placement.repair``.
     """
     dev = resolve_device(device)
-    cost, mass, cap = (t.to(dev) for t in (cost, mass, cap))
-    u, v, K, _ = scaling_core_auto(
-        cost, mass, cap, eps=eps, n_iters=n_iters, kernel_dtype=kernel_dtype
-    )
-    return round_and_repair(cost, mass, cap, u, v, K, chunk=chunk)
+    with span("placement.step"):
+        cost, mass, cap = (t.to(dev) for t in (cost, mass, cap))
+        u, v, K, _ = scaling_core_auto(
+            cost, mass, cap, eps=eps, n_iters=n_iters, kernel_dtype=kernel_dtype
+        )
+        return round_and_repair(cost, mass, cap, u, v, K, chunk=chunk)
 
 
 def logdomain_placement_step(

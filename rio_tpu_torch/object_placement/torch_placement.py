@@ -1312,21 +1312,33 @@ class TorchObjectPlacement(ObjectPlacement):
         last pass under one lock hold re-places keys that a concurrent
         ``remove``/``clean_server`` dropped between chunks.
 
+        The call is the span ``placement_assign``; its ``lock_wait_ms`` is
+        the time spent waiting for the lock (behind a rebalance's snapshot
+        or apply, say).
+
         Raises :class:`rio_tpu_torch.errors.NoSchedulableCapacity` (a
         ``ValueError``) when no node has registered yet.
         """
         keys = [str(o) for o in object_ids]
-        for start in range(0, len(keys), self._MAX_PLACE_CHUNK):
-            chunk = keys[start : start + self._MAX_PLACE_CHUNK]
+        with span("placement_assign", n=len(keys)) as sp:
+            waited = 0.0
+            for start in range(0, len(keys), self._MAX_PLACE_CHUNK):
+                chunk = keys[start : start + self._MAX_PLACE_CHUNK]
+                t0 = time.perf_counter()
+                async with self._lock:
+                    waited += time.perf_counter() - t0
+                    unplaced = [k for k in chunk if k not in self._placements]
+                    if unplaced:
+                        await self._place_chunk_locked(unplaced)
+            t0 = time.perf_counter()
             async with self._lock:
-                unplaced = [k for k in chunk if k not in self._placements]
-                if unplaced:
-                    await self._place_chunk_locked(unplaced)
-        async with self._lock:
-            missing = [k for k in keys if k not in self._placements]
-            if missing:
-                await self._place_keys_async(missing)
-            return [self._node_order[self._placements[k]] for k in keys]
+                waited += time.perf_counter() - t0
+                if sp is not None:
+                    sp.attrs["lock_wait_ms"] = waited * 1e3
+                missing = [k for k in keys if k not in self._placements]
+                if missing:
+                    await self._place_keys_async(missing)
+                return [self._node_order[self._placements[k]] for k in keys]
 
     # Bounds the (bucket x node_axis) working set of one placement solve.
     # Chunk edges change the waterfill's result (it carries the updated
@@ -1728,19 +1740,20 @@ class TorchObjectPlacement(ObjectPlacement):
                 return 0
             hist = self._archived_history()
             t_apply = time.perf_counter()
-            moved = 0
-            planned: list[tuple[str, str, str]] = []
-            for (key, old_idx), new_idx in zip(disp, fill.tolist()):
+            with span("placement_apply", mode=solved_as, n=n):
+                moved = 0
+                planned: list[tuple[str, str, str]] = []
+                for (key, old_idx), new_idx in zip(disp, fill.tolist()):
+                    if move_sink is not None:
+                        planned.append((key, node_order[old_idx], node_order[int(new_idx)]))
+                    elif self._set_placement(key, int(new_idx)):
+                        moved += 1
                 if move_sink is not None:
-                    planned.append((key, node_order[old_idx], node_order[int(new_idx)]))
-                elif self._set_placement(key, int(new_idx)):
-                    moved += 1
-            if move_sink is not None:
-                moved = len(planned)
-            if g is not None:
-                self._g = g
-                self._g_fp = self._sched_fp()
-            self._recount_loads()
+                    moved = len(planned)
+                if g is not None:
+                    self._g = g
+                    self._g_fp = self._sched_fp()
+                self._recount_loads()
             self._epoch += 1
             self._plan = PlanState(
                 g=g if g is not None else plan.g,
@@ -2213,21 +2226,22 @@ class TorchObjectPlacement(ObjectPlacement):
         if mode not in _SOLVER_MODES:
             raise ValueError(f"unknown placement mode {mode!r}")
         async with self._lock:
-            n = len(self._placements)
-            snapshot_epoch = self._epoch
-            self._recount_loads()
-            load, cap, alive = self._node_arrays()
-            node_order = list(self._node_order)  # snapshot for off-lock use
-            no_capacity = self._no_schedulable_capacity_host()
-            plan = self._plan  # immutable snapshot (atomic-swap field)
-            # O(displaced) fast path FIRST: for pure node-departure churn
-            # the O(N) key/seat snapshot below is skipped entirely.
-            fast = None
-            if delta is not False and n and not no_capacity:
-                fast = self._delta_fast_snapshot(plan, n, cap, alive, force=(delta is True))
-            if fast is None and n:
-                keys = list(self._placements.keys())
-                cur_idx = np.fromiter(self._placements.values(), np.int32, count=n)
+            with span("placement_snapshot"):
+                n = len(self._placements)
+                snapshot_epoch = self._epoch
+                self._recount_loads()
+                load, cap, alive = self._node_arrays()
+                node_order = list(self._node_order)  # snapshot for off-lock use
+                no_capacity = self._no_schedulable_capacity_host()
+                plan = self._plan  # immutable snapshot (atomic-swap field)
+                # O(displaced) fast path FIRST: for pure node-departure churn
+                # the O(N) key/seat snapshot below is skipped entirely.
+                fast = None
+                if delta is not False and n and not no_capacity:
+                    fast = self._delta_fast_snapshot(plan, n, cap, alive, force=(delta is True))
+                if fast is None and n:
+                    keys = list(self._placements.keys())
+                    cur_idx = np.fromiter(self._placements.values(), np.int32, count=n)
         if not n:
             return 0
         if fast is not None:
@@ -2277,9 +2291,7 @@ class TorchObjectPlacement(ObjectPlacement):
                 if route_hier
                 else f"{mode}+collapsed" if collapse else mode
             )
-            with span("placement_solve", mode=solved_as, n=n), torch.profiler.record_function(
-                f"rio_tpu_torch.solve.{solved_as}"
-            ):
+            with span("placement_solve", mode=solved_as, n=n):
                 coarse_g = None
                 if mode == "hierarchical" or route_hier:
                     # Never builds the flat (bucket x node_axis) cost.
@@ -2335,24 +2347,25 @@ class TorchObjectPlacement(ObjectPlacement):
             # equals the cur_idx snapshot.
             hist = self._archived_history()
             t_apply = time.perf_counter()
-            mover_pos = np.nonzero(assignment != cur_idx)[0]
-            moved = 0
-            planned: list[tuple[str, str, str]] = []
-            for p in mover_pos.tolist():
+            with span("placement_apply", mode=solved_as, n=n):
+                mover_pos = np.nonzero(assignment != cur_idx)[0]
+                moved = 0
+                planned: list[tuple[str, str, str]] = []
+                for p in mover_pos.tolist():
+                    if move_sink is not None:
+                        # Plan, don't apply: the row flips when the sink's
+                        # handoff commits.
+                        planned.append(
+                            (keys[p], node_order[int(cur_idx[p])], node_order[int(assignment[p])])
+                        )
+                    elif self._set_placement(keys[p], int(assignment[p])):
+                        moved += 1
                 if move_sink is not None:
-                    # Plan, don't apply: the row flips when the sink's
-                    # handoff commits.
-                    planned.append(
-                        (keys[p], node_order[int(cur_idx[p])], node_order[int(assignment[p])])
-                    )
-                elif self._set_placement(keys[p], int(assignment[p])):
-                    moved += 1
-            if move_sink is not None:
-                moved = len(planned)
-            if g is not None:
-                self._g = g
-                self._g_fp = self._sched_fp()
-            self._recount_loads()
+                    moved = len(planned)
+                if g is not None:
+                    self._g = g
+                    self._g_fp = self._sched_fp()
+                self._recount_loads()
             self._epoch += 1
             if not solved_as.endswith("+no_capacity"):
                 # Commit the plan the NEXT churn event deltas against. A

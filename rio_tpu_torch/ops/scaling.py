@@ -23,7 +23,8 @@ Two implementations, with two bfloat16 semantics:
   what the wrapper runs for CPU tensors.
 
 :func:`scaling_core_auto` picks the kernel for CUDA tensors and the eager
-loop for CPU tensors.
+loop for CPU tensors. Both cores open the spans ``scaling.k_build`` and
+``scaling.iterations`` (:mod:`rio_tpu_torch.tracing`).
 
 :func:`scaling_kernel`, :func:`scaling_core` and :func:`scaling_sinkhorn`
 also take a leading batch axis: a ``(G, n, m)`` cost with ``(G, n)`` masses,
@@ -40,6 +41,7 @@ import ctypes
 
 import torch
 
+from ..tracing import span
 from .sinkhorn import SinkhornResult, _safe_log, marginal_err, normalize_marginals
 
 _NEG_INF = float("-inf")
@@ -113,21 +115,23 @@ def scaling_core(
     ``g_init`` warm-starts ``v0`` from a previous solve's node potentials,
     gauged by its max (:func:`_warm_seed`); exponents are clipped at -60.
     """
-    a, b, K, shift = scaling_kernel(
-        cost, row_mass, col_capacity, eps=eps, kernel_dtype=kernel_dtype
-    )
-    Kf = K.float()
-    u = torch.zeros_like(a)
-    if g_init is None:
-        v = torch.ones_like(b)
-    else:
-        g_seed, s = _warm_seed(g_init)
-        v = torch.exp(torch.clamp((g_seed - s) / eps, -60.0, 0.0))
-    for _ in range(n_iters):
-        Kv = _matvec(Kf, v.to(kernel_dtype).float())
-        u = torch.where(a > 0, a / Kv.clamp_min(1e-30), 0.0)
-        KTu = _vecmat(u.to(kernel_dtype).float(), Kf)
-        v = torch.where(b > 0, b / KTu.clamp_min(1e-30), 0.0)
+    with span("scaling.k_build"):
+        a, b, K, shift = scaling_kernel(
+            cost, row_mass, col_capacity, eps=eps, kernel_dtype=kernel_dtype
+        )
+    with span("scaling.iterations"):
+        Kf = K.float()
+        u = torch.zeros_like(a)
+        if g_init is None:
+            v = torch.ones_like(b)
+        else:
+            g_seed, s = _warm_seed(g_init)
+            v = torch.exp(torch.clamp((g_seed - s) / eps, -60.0, 0.0))
+        for _ in range(n_iters):
+            Kv = _matvec(Kf, v.to(kernel_dtype).float())
+            u = torch.where(a > 0, a / Kv.clamp_min(1e-30), 0.0)
+            KTu = _vecmat(u.to(kernel_dtype).float(), Kf)
+            v = torch.where(b > 0, b / KTu.clamp_min(1e-30), 0.0)
     return u, v, K, shift
 
 
@@ -296,13 +300,15 @@ def fused_scaling_core(
     ragged shapes itself, so K is neither padded nor copied; the returned
     ``K`` is the (n, m) kernel matrix the rounding pass reuses.
     """
-    a, b, K, shift = scaling_kernel(
-        cost, row_mass, col_capacity, eps=eps, kernel_dtype=kernel_dtype
-    )
-    u = torch.zeros_like(a)
-    v = torch.ones_like(b)
-    for _ in range(n_iters):
-        u, v = fused_scaling_iteration(K, a, b, v)
+    with span("scaling.k_build"):
+        a, b, K, shift = scaling_kernel(
+            cost, row_mass, col_capacity, eps=eps, kernel_dtype=kernel_dtype
+        )
+    with span("scaling.iterations"):
+        u = torch.zeros_like(a)
+        v = torch.ones_like(b)
+        for _ in range(n_iters):
+            u, v = fused_scaling_iteration(K, a, b, v)
     return u, v, K, shift
 
 

@@ -16,6 +16,10 @@ over a factorized affinity (object features x node features):
 
 Peak memory is O(N*G + G*B*S + N*d), never O(N*M).
 
+Each stage is a span of :mod:`rio_tpu_torch.tracing`: ``hier.coarse``,
+``hier.bucket``, ``hier.fine`` and ``hier.map_back`` in every
+:func:`hierarchical_assign` call, so in every chunk and mesh cell.
+
 :func:`chunked_hierarchical_assign` solves the object axis in chunks, each
 against ``1/n_chunks`` of every node's capacity. The JAX form runs the
 chunks under ``lax.map`` in one executable, so that the TPU compiles one
@@ -49,6 +53,7 @@ import torch
 from ..ops.prng import sqrt_rn
 from ..ops.scaling import scaling_sinkhorn
 from ..ops.sinkhorn import exact_quota_repair, plan_rounded_assign, route_sentinel_spill
+from ..tracing import span
 from .mesh import AXES, ROWS_SPEC, Mesh, concat, pmean, psum, replicate, shard
 
 __all__ = [
@@ -128,89 +133,93 @@ def hierarchical_assign(
     cap = node_capacity.float() * alive.float()
 
     # ---- stage 1: coarse obj -> group -------------------------------------
-    # Coarse affinity = the object's best LIVE member in each group (a mean
-    # embedding would dilute a single warm node by 1/S).
-    alive_grouped = (cap > 0).reshape(n_groups, s)
-    group_cap = cap.reshape(n_groups, s).sum(dim=1)  # (G,)
-    coarse_aff = torch.empty((n, n_groups), dtype=torch.float32, device=dev)
-    block = max(1, min(n_groups, _COARSE_BLOCK_ELEMS // max(1, n * s)))
-    for g0 in range(0, n_groups, block):
-        g1 = min(n_groups, g0 + block)
-        scores = (obj_feat @ node_feat[:, g0 * s : g1 * s]).view(n, g1 - g0, s)
-        scores = scores.masked_fill(~alive_grouped[g0:g1], float("-inf"))
-        coarse_aff[:, g0:g1] = scores.amax(dim=-1)
-    live_group = group_cap > 0  # (G,)
-    raw_cost = -coarse_aff  # (N, G); +inf on all-dead groups
-    # Normalize the cost scale over LIVE groups only (eps becomes a relative
-    # knob), then a finite terrible cost on dead groups (their zero capacity
-    # already excludes them from the marginals).
-    std = _population_std(raw_cost, live_group[None, :].expand_as(raw_cost))
-    coarse_cost = torch.where(live_group[None, :], raw_cost / std.clamp_min(1e-6), 1e6)
-    mass = torch.ones(n, dtype=torch.float32, device=dev)
-    res_c = scaling_sinkhorn(
-        coarse_cost, mass, group_cap, eps=eps, n_iters=coarse_iters, g_init=coarse_g_init,
-    )
-    group = plan_rounded_assign(coarse_cost, res_c.f, res_c.g, eps)  # (N,)
-    # Exact group quotas, so a bucket sized >= the largest quota cannot
-    # overflow.
-    group = exact_quota_repair(group, group_cap / group_cap.sum().clamp_min(1e-30) * n)
+    with span("hier.coarse"):
+        # Coarse affinity = the object's best LIVE member in each group (a mean
+        # embedding would dilute a single warm node by 1/S).
+        alive_grouped = (cap > 0).reshape(n_groups, s)
+        group_cap = cap.reshape(n_groups, s).sum(dim=1)  # (G,)
+        coarse_aff = torch.empty((n, n_groups), dtype=torch.float32, device=dev)
+        block = max(1, min(n_groups, _COARSE_BLOCK_ELEMS // max(1, n * s)))
+        for g0 in range(0, n_groups, block):
+            g1 = min(n_groups, g0 + block)
+            scores = (obj_feat @ node_feat[:, g0 * s : g1 * s]).view(n, g1 - g0, s)
+            scores = scores.masked_fill(~alive_grouped[g0:g1], float("-inf"))
+            coarse_aff[:, g0:g1] = scores.amax(dim=-1)
+        live_group = group_cap > 0  # (G,)
+        raw_cost = -coarse_aff  # (N, G); +inf on all-dead groups
+        # Normalize the cost scale over LIVE groups only (eps becomes a relative
+        # knob), then a finite terrible cost on dead groups (their zero capacity
+        # already excludes them from the marginals).
+        std = _population_std(raw_cost, live_group[None, :].expand_as(raw_cost))
+        coarse_cost = torch.where(live_group[None, :], raw_cost / std.clamp_min(1e-6), 1e6)
+        mass = torch.ones(n, dtype=torch.float32, device=dev)
+        res_c = scaling_sinkhorn(
+            coarse_cost, mass, group_cap, eps=eps, n_iters=coarse_iters, g_init=coarse_g_init,
+        )
+        group = plan_rounded_assign(coarse_cost, res_c.f, res_c.g, eps)  # (N,)
+        # Exact group quotas, so a bucket sized >= the largest quota cannot
+        # overflow.
+        group = exact_quota_repair(group, group_cap / group_cap.sum().clamp_min(1e-30) * n)
 
     # ---- bucket objects by group ------------------------------------------
-    # Rank within group via a stable sort by group id: each group's objects
-    # are a contiguous run of the sorted order.
-    order = torch.argsort(group, stable=True)
-    sorted_group = group[order].long()
-    counts = torch.bincount(group, minlength=n_groups)
-    starts = torch.cumsum(counts, dim=0) - counts
-    rank = torch.arange(n, device=dev) - starts[sorted_group]
-    in_bucket = rank < bucket
-    overflow = (~in_bucket).sum().to(torch.int32)
-    # The (G, bucket) table of object ids, sentinel N for padding. JAX
-    # scatters overflow rows to an out-of-range slot and drops them; only
-    # in-bucket rows are written here.
-    flat = torch.full((n_groups * bucket,), n, dtype=torch.int64, device=dev)
-    flat[(sorted_group * bucket + rank)[in_bucket]] = order[in_bucket]
-    idx = flat.view(n_groups, bucket)
+    with span("hier.bucket"):
+        # Rank within group via a stable sort by group id: each group's objects
+        # are a contiguous run of the sorted order.
+        order = torch.argsort(group, stable=True)
+        sorted_group = group[order].long()
+        counts = torch.bincount(group, minlength=n_groups)
+        starts = torch.cumsum(counts, dim=0) - counts
+        rank = torch.arange(n, device=dev) - starts[sorted_group]
+        in_bucket = rank < bucket
+        overflow = (~in_bucket).sum().to(torch.int32)
+        # The (G, bucket) table of object ids, sentinel N for padding. JAX
+        # scatters overflow rows to an out-of-range slot and drops them; only
+        # in-bucket rows are written here.
+        flat = torch.full((n_groups * bucket,), n, dtype=torch.int64, device=dev)
+        flat[(sorted_group * bucket + rank)[in_bucket]] = order[in_bucket]
+        idx = flat.view(n_groups, bucket)
 
     # ---- stage 2: the G fine problems, batched ----------------------------
-    obj_feat_pad = torch.cat([obj_feat, obj_feat.new_zeros((1, d))])
-    feat_b = obj_feat_pad[idx]  # (G, B, d); padding reads the zero row
-    node_feat_g = node_feat.reshape(d, n_groups, s).permute(1, 0, 2)  # (G, d, S)
-    fine_cost = -torch.bmm(feat_b, node_feat_g)  # (G, B, S)
-    # One scale over all (G, B, S) entries, padding rows included.
-    fine_cost = fine_cost / _population_std(fine_cost).clamp_min(1e-6)
-    fine_mass = (idx < n).float()  # (G, B)
-    real = fine_mass > 0
-    cap_g = cap.reshape(n_groups, s)  # (G, S)
-    res_f = scaling_sinkhorn(fine_cost, fine_mass, cap_g, eps=eps, n_iters=fine_iters)
-    local = plan_rounded_assign(fine_cost, res_f.f, res_f.g, eps)  # (G, B)
-    # Exact per-node quotas within each group: padding rows go to a
-    # sentinel column s sized to their count, so real rows land exactly on
-    # capacity shares of the group's real population.
-    n_real = fine_mass.sum(dim=-1, keepdim=True)  # (G, 1)
-    local = torch.where(real, local, s)
-    expected = torch.cat(
-        [cap_g / cap_g.sum(dim=-1, keepdim=True).clamp_min(1e-30) * n_real, bucket - n_real],
-        dim=-1,
-    )
-    repaired = exact_quota_repair(local, expected)
-    # Real rows left on the sentinel go to the group's best live member.
-    fine_local = route_sentinel_spill(repaired, real, s, cap_g)  # (G, B) in [0, S]
-    members = torch.arange(m, device=dev).view(n_groups, s)
-    # Padding rows keep the sentinel s; their writes are dropped below.
-    fine_global = members.gather(1, fine_local.long().clamp_max(s - 1))  # (G, B)
+    with span("hier.fine"):
+        obj_feat_pad = torch.cat([obj_feat, obj_feat.new_zeros((1, d))])
+        feat_b = obj_feat_pad[idx]  # (G, B, d); padding reads the zero row
+        node_feat_g = node_feat.reshape(d, n_groups, s).permute(1, 0, 2)  # (G, d, S)
+        fine_cost = -torch.bmm(feat_b, node_feat_g)  # (G, B, S)
+        # One scale over all (G, B, S) entries, padding rows included.
+        fine_cost = fine_cost / _population_std(fine_cost).clamp_min(1e-6)
+        fine_mass = (idx < n).float()  # (G, B)
+        real = fine_mass > 0
+        cap_g = cap.reshape(n_groups, s)  # (G, S)
+        res_f = scaling_sinkhorn(fine_cost, fine_mass, cap_g, eps=eps, n_iters=fine_iters)
+        local = plan_rounded_assign(fine_cost, res_f.f, res_f.g, eps)  # (G, B)
+        # Exact per-node quotas within each group: padding rows go to a
+        # sentinel column s sized to their count, so real rows land exactly on
+        # capacity shares of the group's real population.
+        n_real = fine_mass.sum(dim=-1, keepdim=True)  # (G, 1)
+        local = torch.where(real, local, s)
+        expected = torch.cat(
+            [cap_g / cap_g.sum(dim=-1, keepdim=True).clamp_min(1e-30) * n_real, bucket - n_real],
+            dim=-1,
+        )
+        repaired = exact_quota_repair(local, expected)
+        # Real rows left on the sentinel go to the group's best live member.
+        fine_local = route_sentinel_spill(repaired, real, s, cap_g)  # (G, B) in [0, S]
+        members = torch.arange(m, device=dev).view(n_groups, s)
+        # Padding rows keep the sentinel s; their writes are dropped below.
+        fine_global = members.gather(1, fine_local.long().clamp_max(s - 1))  # (G, B)
 
     # ---- map back to object order -----------------------------------------
-    assignment = torch.zeros(n, dtype=torch.int32, device=dev)
-    flat_idx = idx.reshape(-1)
-    seated = flat_idx < n
-    assignment[flat_idx[seated]] = fine_global.reshape(-1)[seated].to(torch.int32)
-    # Overflow objects (rank >= bucket) fall back to their group's
-    # highest-capacity member.
-    fallback = members.gather(1, cap_g.argmax(dim=1, keepdim=True))[:, 0].to(torch.int32)
-    missed = torch.zeros(n, dtype=torch.bool, device=dev)
-    missed[order] = ~in_bucket
-    assignment = torch.where(missed, fallback[group.long()], assignment)
+    with span("hier.map_back"):
+        assignment = torch.zeros(n, dtype=torch.int32, device=dev)
+        flat_idx = idx.reshape(-1)
+        seated = flat_idx < n
+        assignment[flat_idx[seated]] = fine_global.reshape(-1)[seated].to(torch.int32)
+        # Overflow objects (rank >= bucket) fall back to their group's
+        # highest-capacity member.
+        fallback = members.gather(1, cap_g.argmax(dim=1, keepdim=True))[:, 0].to(torch.int32)
+        missed = torch.zeros(n, dtype=torch.bool, device=dev)
+        missed[order] = ~in_bucket
+        assignment = torch.where(missed, fallback[group.long()], assignment)
     return HierarchicalResult(
         assignment=assignment, group=group, overflow=overflow,
         coarse_g=res_c.g, coarse_err=res_c.err,
@@ -220,11 +229,14 @@ def hierarchical_assign(
 def _solve_chunks(
     obj_feat, node_feat, node_capacity, alive, *, n_groups, n_chunks, coarse_g_init, timed, kw,
 ) -> tuple[HierarchicalResult, list[float]]:
-    """The chunk loop of both chunked forms; wall ms per chunk when ``timed``."""
+    """The chunk loop of both chunked forms; wall ms per chunk when ``timed``.
+
+    The spans ``hier.solve`` (the loop and the concatenation) and
+    ``hier.chunk`` (each chunk) hold :func:`hierarchical_assign`'s stage
+    spans.
+    """
     n, d = obj_feat.shape
     assert n % n_chunks == 0, (n, n_chunks)
-    of = obj_feat.reshape(n_chunks, n // n_chunks, d)
-    cap_chunk = node_capacity / n_chunks
 
     def sync() -> None:
         if timed and obj_feat.device.type == "cuda":
@@ -233,21 +245,24 @@ def _solve_chunks(
     # Staged inputs first, so that no pending producer (feature generation)
     # drains inside chunk 0's timer.
     sync()
-    parts: list[HierarchicalResult] = []
-    chunk_ms: list[float] = []
-    for c in range(n_chunks):
-        t0 = time.perf_counter()
-        res = hierarchical_assign(
-            of[c], node_feat, cap_chunk, alive,
-            n_groups=n_groups, coarse_g_init=coarse_g_init, **kw,
-        )
-        sync()
-        if timed:
-            chunk_ms.append(round((time.perf_counter() - t0) * 1e3, 3))
-        parts.append(res)
-    last = parts[-1]
-    return (
-        HierarchicalResult(
+    with span("hier.solve", n=n, chunks=n_chunks):
+        of = obj_feat.reshape(n_chunks, n // n_chunks, d)
+        cap_chunk = node_capacity / n_chunks
+        parts: list[HierarchicalResult] = []
+        chunk_ms: list[float] = []
+        for c in range(n_chunks):
+            t0 = time.perf_counter()
+            with span("hier.chunk", chunk=c):
+                res = hierarchical_assign(
+                    of[c], node_feat, cap_chunk, alive,
+                    n_groups=n_groups, coarse_g_init=coarse_g_init, **kw,
+                )
+            sync()
+            if timed:
+                chunk_ms.append(round((time.perf_counter() - t0) * 1e3, 3))
+            parts.append(res)
+        last = parts[-1]
+        result = HierarchicalResult(
             assignment=torch.cat([r.assignment for r in parts]),
             group=torch.cat([r.group for r in parts]),
             overflow=torch.stack([r.overflow for r in parts]).sum().to(torch.int32),
@@ -255,9 +270,8 @@ def _solve_chunks(
             # chunk's coarse potentials seed the next solve; keep the last.
             coarse_g=last.coarse_g,
             coarse_err=last.coarse_err,
-        ),
-        chunk_ms,
-    )
+        )
+    return result, chunk_ms
 
 
 def chunked_hierarchical_assign(

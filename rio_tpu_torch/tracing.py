@@ -1,10 +1,22 @@
-"""Tracing spans of the port: a copy of ``rio_tpu/tracing.py``.
+"""Tracing spans of the port: a copy of ``rio_tpu/tracing.py``, on the profiler's clock too.
 
 The port imports no module of ``rio_tpu``, so it keeps its own span API:
 name, duration and key/values, pluggable sinks (a logging sink provided).
 Spans opened here (``placement_solve`` in
-:mod:`rio_tpu_torch.object_placement.torch_placement`) reach the sinks
+:mod:`rio_tpu_torch.object_placement.torch_placement`, the stages of
+``entry.placement_step`` and of the two-level solve) reach the sinks
 registered with :func:`add_sink` of THIS module, not ``rio_tpu.tracing``'s.
+
+One addition to the copy: while torch's profiler records, a span also
+opens ``torch.profiler.record_function(name)``, so its range sits in the
+profiler's trace beside the kernels, and it times its stage into a ring of
+the newest :data:`STAGE_RING` entries per name: a ``torch.cuda.Event`` pair
+on the current stream in a process where CUDA is initialised (nothing
+synchronises until :func:`device_stage_ms` reads them), the host's
+``perf_counter`` elsewhere. Whether the profiler records is read from
+``torch.autograd.profiler`` in ``sys.modules``: this module never imports
+torch, so the runtime's processes stay torch-free. With no sink and no
+profiler, :func:`span` returns one shared null object, as in the copy.
 """
 
 from __future__ import annotations
@@ -13,7 +25,9 @@ import contextvars
 import logging
 import os
 import random
+import sys
 import time
+from collections import deque
 from dataclasses import dataclass, field
 from typing import Any, Callable
 
@@ -160,11 +174,78 @@ class _NullSpan:
 _NULL_SPAN = _NullSpan()
 
 
+STAGE_RING = 4096
+# name -> the newest (start, end) pairs of its spans opened while the
+# profiler recorded: torch.cuda.Event pairs, or perf_counter seconds.
+_STAGES: dict[str, deque] = {}
+
+
+def _profiler():
+    """``torch.autograd.profiler`` while it records, else None; never imports torch."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    return prof if prof is not None and prof._is_profiler_enabled else None
+
+
+class _StageRange:
+    """A profiler range of one span, timed into :data:`_STAGES`."""
+
+    __slots__ = ("_name", "_range", "_cuda", "_start")
+
+    def __init__(self, name: str, prof) -> None:
+        self._name = name
+        self._range = prof.record_function(name)
+
+    def __enter__(self) -> None:
+        self._range.__enter__()
+        cuda = sys.modules["torch"].cuda
+        if cuda.is_initialized() and not cuda.is_current_stream_capturing():
+            self._cuda = cuda
+            self._start = cuda.Event(enable_timing=True)
+            self._start.record()
+        else:
+            self._cuda = None
+            self._start = time.perf_counter()
+
+    def __exit__(self, *exc) -> bool:
+        if self._cuda is None:
+            end = time.perf_counter()
+        else:
+            end = self._cuda.Event(enable_timing=True)
+            end.record()
+        _STAGES.setdefault(self._name, deque(maxlen=STAGE_RING)).append((self._start, end))
+        self._range.__exit__(*exc)
+        return False
+
+
+def device_stage_ms(name: str, last: int) -> float:
+    """Summed milliseconds of the ``last`` newest stage times of ``name``.
+
+    A CUDA entry is the elapsed time from its start event to its end event,
+    the stage's device wall: its device work plus any idle inside it that
+    waits for the host. It waits for the end event. A host entry (a process
+    without CUDA) is the span's host duration. Raises ``ValueError`` when
+    the ring holds fewer than ``last`` entries.
+    """
+    ring = _STAGES.get(name, ())
+    if not 0 <= last <= len(ring):
+        raise ValueError(f"{last} stage times of {name!r} asked for, {len(ring)} held")
+    total = 0.0
+    for start, end in list(ring)[len(ring) - last :]:
+        if isinstance(start, float):
+            total += (end - start) * 1e3
+        else:
+            end.synchronize()
+            total += start.elapsed_time(end)
+    return total
+
+
 class _LiveSpan:
-    __slots__ = ("_span", "_token")
+    __slots__ = ("_span", "_token", "_stage")
 
     def __init__(self, name: str, attrs: dict[str, Any]) -> None:
         self._span = Span(name=name, attrs=attrs)
+        prof = _profiler()
+        self._stage = None if prof is None else _StageRange(name, prof)
 
     def __enter__(self) -> Span:
         s = self._span
@@ -175,6 +256,8 @@ class _LiveSpan:
             s.trace_id, s.parent_id = parent
         s.span_id = f"{_rand.getrandbits(64):016x}"
         self._token = _CTX.set((s.trace_id, s.span_id))
+        if self._stage is not None:
+            self._stage.__enter__()
         s.wall_start = time.time()
         s.start = time.perf_counter()
         return s
@@ -182,6 +265,8 @@ class _LiveSpan:
     def __exit__(self, *exc) -> bool:
         s = self._span
         s.duration = time.perf_counter() - s.start
+        if self._stage is not None:
+            self._stage.__exit__(*exc)
         _CTX.reset(self._token)
         for sink in _SINKS:
             try:
@@ -192,7 +277,9 @@ class _LiveSpan:
 
 
 def span(name: str, **attrs: Any):
-    """Trace a block. Free (shared null object) when no sink is registered."""
+    """Trace a block. Free (shared null object) when no sink is registered
+    and torch's profiler is not recording."""
     if not _ENABLED:
-        return _NULL_SPAN
+        prof = _profiler()
+        return _NULL_SPAN if prof is None else _StageRange(name, prof)
     return _LiveSpan(name, attrs)

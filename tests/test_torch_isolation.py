@@ -42,7 +42,6 @@ def test_importing_every_module_of_the_port_loads_no_jax():
     assert "rio_tpu_torch.parallel.multihost" in result["imported"]
     assert "rio_tpu_torch.ops.prng" in result["imported"]
     assert "rio_tpu_torch.bench" in result["imported"]
-    assert "rio_tpu_torch.profiling" in result["imported"]
     for name in ("server", "client", "codec", "utils.routing_live", "utils.churn_live", "sharded",
                  "autoscale.provision", "utils.autoscale_live", "utils.tracing_live",
                  "examples.tpu_placement", "placement_daemon", "native", "native.transport",

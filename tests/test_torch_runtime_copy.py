@@ -23,7 +23,11 @@ These differences are deliberate, and this test names them line for line
   port's routing constants for ``--route-small`` and imports the copied
   cluster harness from the package, with no ``sys.path`` edit;
 * the eleven runtime-only examples leave ``sys.path`` alone, and so import
-  no ``sys``.
+  no ``sys``;
+* ``tracing.py``'s spans also open a ``torch.profiler`` range, timed into a
+  ring of stage times, while the profiler records: the top-level names in
+  ``PORT_ONLY`` are the port's alone, and the lines that use them are
+  named in ``DELIBERATE``.
 """
 
 import ast
@@ -197,12 +201,33 @@ DELIBERATE = {
         "port's routing constants; the copied harness is a module of the package, so no "
         "sys.path edit (and no os)",
     ),
+    "tracing.py": (
+        ["    __slots__ = ('_span', '_token')", "        return _NULL_SPAN"],
+        [
+            "import sys",
+            "from collections import deque",
+            "    __slots__ = ('_span', '_token', '_stage')",
+            "        prof = _profiler()",
+            "        self._stage = None if prof is None else _StageRange(name, prof)",
+            "        if self._stage is not None:",
+            "            self._stage.__enter__()",
+            "        if self._stage is not None:",
+            "            self._stage.__exit__(*exc)",
+            "        prof = _profiler()",
+            "        return _NULL_SPAN if prof is None else _StageRange(name, prof)",
+        ],
+        "a span also opens a profiler range, timed into the stage ring, while torch's "
+        "profiler records; the null path also asks whether it records",
+    ),
     **{
         rel: (["import sys", "sys.path.insert(0, '.')"], [],
               "a package module runs with ``python -m`` and leaves sys.path alone (and needs no sys)")
         for rel in RUNTIME_EXAMPLES
     },
 }
+
+# file -> top-level names defined in the port's file alone; the comparison leaves them out.
+PORT_ONLY = {"tracing.py": {"STAGE_RING", "_STAGES", "_profiler", "_StageRange", "device_stage_ms"}}
 
 _PORT_NAME = re.compile(r"(?<![A-Za-z0-9_])rio_tpu_torch")
 
@@ -239,22 +264,34 @@ class _Normalise(ast.NodeTransformer):
         return node
 
 
-def _normalised_lines(path: pathlib.Path) -> list[str]:
+def _defined(node) -> set[str]:
+    """The top-level names a statement defines."""
+    if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+        return {node.name}
+    if isinstance(node, ast.Assign):
+        return {t.id for t in node.targets if isinstance(t, ast.Name)}
+    if isinstance(node, ast.AnnAssign) and isinstance(node.target, ast.Name):
+        return {node.target.id}
+    return set()
+
+
+def _normalised_lines(path: pathlib.Path, drop: set[str] = frozenset()) -> list[str]:
     tree = _Normalise().visit(ast.parse(path.read_text(), filename=str(path)))
+    tree.body = [node for node in tree.body if not _defined(node) & drop]
     return ast.unparse(tree).splitlines()
 
 
 def test_the_copy_list_names_85_distinct_files():
     """The list's size, 99 files since the examples and the endurance tool joined the 85."""
     assert len(COPIED) == len(set(COPIED)) == 99
-    assert set(DELIBERATE) <= set(COPIED)
+    assert set(DELIBERATE) <= set(COPIED) and set(PORT_ONLY) <= set(DELIBERATE)
     assert set(REFERENCE_PATH) <= set(COPIED)
 
 
 @pytest.mark.parametrize("rel", COPIED)
 def test_the_port_file_is_the_reference_file(rel):
     ref = _normalised_lines(ROOT / REFERENCE_PATH.get(rel, f"rio_tpu/{rel}"))
-    port = _normalised_lines(ROOT / "rio_tpu_torch" / rel)
+    port = _normalised_lines(ROOT / "rio_tpu_torch" / rel, PORT_ONLY.get(rel, set()))
     only_ref, only_port = [], []
     for line in difflib.ndiff(ref, port):
         if line.startswith("- "):

@@ -11,14 +11,19 @@ Phases, each printing one JSON line:
 3. ``ragged``  — the fused scaling-iteration kernel against its plain PyTorch twin on
    small ragged shapes (zero-mass rows, zero-capacity columns, float32 and bfloat16 K,
    every load path), rtol 1e-4;
-4. ``full_width`` — the same at 1,048,576 x 1024 bfloat16, one iteration, rtol 1e-4;
-   then the CDF-rounding kernel (``ops.cdf_round.cdf_round``, one launch) on that
-   iteration's u and v against its plain twin: rows agreeing >= 99.9%, residual sums
+4. ``full_width`` — first the K-build kernel (``ops.kbuild.kbuild``, one launch) at
+   1,048,576 x 1024 in float32 and bfloat16 against its twin run on the card: K and the
+   shift equal bit for bit (the elements that differ and by how many ulps are printed),
+   its median ms beside its byte bound and the twin's ms; then the scaling iteration as
+   above at that width in bfloat16, one iteration, rtol 1e-4; then the CDF-rounding
+   kernel (``ops.cdf_round.cdf_round``, one launch) on that iteration's u and v against
+   its plain twin: rows agreeing >= 99.9%, residual sums
    within 1e-5 relative, its median ms beside its byte bound and the twin's ms;
 5. ``main_path`` — ``placement_step`` at 1,048,576 objects x 1024 nodes (bf16 K,
    eps 0.05, 30 iterations, rounding in 65,536-row chunks) on ``make_problem(seed=0)``:
-   the kernel launched 30 times and the CDF-rounding kernel once (its ``placement.round``
-   span reads ``impl="kernel"``: no eager rounding), every node seated at its quota of 1,024;
+   the kernel launched 30 times, the K-build kernel once and the CDF-rounding kernel once
+   (the ``scaling.k_build`` and ``placement.round`` spans read ``impl="kernel"``: no eager
+   K build or rounding), every node seated at its quota of 1,024;
 6. ``step_vs_plain`` — the solve through the kernel against the solve through the plain
    twin at 262,144 x 1024: u and v within rtol 1e-3 after 30 iterations, both
    assignments at quota, rows agreeing >= 99%;
@@ -31,7 +36,7 @@ Phases, each printing one JSON line:
    cost matrix;
 9. ``logdomain_path`` — ``logdomain_placement_step`` at 1,048,576 x 1024 (eps 0.05,
    30 iterations, rounding in 65,536-row chunks) on the same problem: the kernel
-   launched 30 times and neither the scaling kernel nor the CDF-rounding kernel, every
+   launched 30 times and none of the scaling, K-build and CDF-rounding kernels, every
    node at its quota of 1,024, mean cost < 0.25; it prints
    the largest |g| difference to the main path's scaling solve (not bounded);
 10. ``logdomain_vs_plain`` — at 262,144 x 1024, 30 iterations: the kernel path against
@@ -40,14 +45,15 @@ Phases, each printing one JSON line:
 11. ``times`` — CUDA-event medians: each kernel, its plain twin and one library
    yardstick that the port never calls (``torch.mv`` twice for the scaling kernel;
    two ``torch.logsumexp`` sweeps for the log-domain kernel), each over batches of
-   calls; each step and its stages (the main step's ``round_and_check`` is the
-   CDF-rounding kernel with its quantiles and the residuals' sum).
+   calls; each step and its stages (the main step's ``build_K`` is the marginals and
+   the K-build kernel, its ``round_and_check`` the CDF-rounding kernel with its
+   quantiles and the residuals' sum).
 12. the ``directory`` group: ``TorchObjectPlacement`` on the card at 1,048,576 objects
    x 1,024 nodes (``node_axis_size=1024``, eps 0.05, 30 iterations, move_cost 0.5;
    ``bench.py``'s ``_incremental_rate`` kills 3% of nodes), each phase printing its
    wall ms after ``torch.cuda.synchronize()``, ``stats.mode``, ``stats.solve_ms``,
-   ``moved`` and ``displaced``, and the launch counts of both kernels over the phase
-   (0: the directory reaches neither kernel):
+   ``moved`` and ``displaced``, and the launch counts of the four hand kernels over the phase
+   (0: the directory reaches none):
 
    - ``directory_assign``: ``sync_members`` with 1,024 members, ``assign_batch`` of
      1,048,576 new ObjectIds (4 chunks); every node holds exactly 1,024;
@@ -69,7 +75,7 @@ Phases, each printing one JSON line:
 13. the ``hier`` group, BASELINE row 5: 10,485,760 objects on 1,024 nodes (a
    power-of-two bucket of 16,777,216 rows: 32 chunks of 524,288, 128 groups of 8,
    fine bucket 8,192, eps 0.05, 30 + 30 iterations), each phase with its wall ms,
-   peak device memory and both kernels' launch counts (0), the provider phases with
+   peak device memory and the four hand kernels' launch counts (0), the provider phases with
    ``stats.mode``, ``solve_ms``, ``apply_ms``, ``chunks``, ``chunk_ms``, moved and
    displaced:
 
@@ -100,7 +106,7 @@ Phases, each printing one JSON line:
    with a ``merge_edges`` graph of 524,288 rows (half disjoint pairs, half 16-leaf stars,
    Zipf(1.1) byte rates over the rows' ranks, 10 calls/s); each phase prints wall ms,
    ``stats.mode``, ``solve_ms``, ``apply_ms``, moved, the refine's host preparation and
-   per-pass ms (its tracing spans), the pass history, peak device memory and both kernels'
+   per-pass ms (its tracing spans), the pass history, peak device memory and the four hand kernels'
    launch counts (0: the refine runs the plain ``sinkhorn``, as the reference does):
 
    - ``affinity_refine``: 1,048,576 objects, ``rebalance(delta=False)`` in mode
@@ -131,7 +137,7 @@ Phases, each printing one JSON line:
      Then ``persistent_times``.
 16. the ``mesh`` group: 8 shards of the one card (``make_mesh([cuda:0] * 8)``, a (4, 2)
    grid), each phase with its wall ms after ``torch.cuda.synchronize()``, peak device
-   memory and both kernels' launch counts (0: inside the reference's ``shard_map`` runs
+   memory and the four hand kernels' launch counts (0: inside the reference's ``shard_map`` runs
    plain ``jnp``), the provider phases with ``stats.mode``, ``devices``, ``chunks``,
    ``solve_ms``, ``apply_ms``, moved and displaced:
 
@@ -164,7 +170,7 @@ Phases, each printing one JSON line:
    Then ``mesh_times``.
 17. the ``live`` group: the port's own actor runtime (``Server``, ``Client``, gossip
    membership, the ``PlacementDaemon``) on loopback over ``TorchObjectPlacement`` on the
-   card, each phase with both kernels' launch counts (0: the directory reaches neither
+   card, each phase with the four hand kernels' launch counts (0: the directory reaches no
    kernel, as the reference's does) and whether the C++ envelope codec served
    (``native``):
 
@@ -194,7 +200,7 @@ Phases, each printing one JSON line:
    files in a ``tempfile.mkdtemp()`` directory (``rio_tpu_torch.utils.durable_live``): 8
    servers on ``SqliteMembershipStorage``, ``PersistentTorchObjectPlacement`` on the card
    over ``SqliteObjectPlacement`` (``auto`` mode, the default ``flush_interval``) and
-   ``SqliteState`` behind 8,192 ``DurableCounter`` s; each phase with both kernels' launch
+   ``SqliteState`` behind 8,192 ``DurableCounter`` s; each phase with the four hand kernels' launch
    counts (0) and ``reduced`` (the cut of the object count and its cause):
 
    - ``durable_row2``: 59,000 echo objects (cut from 100,000: ``DUR_OBJ``) and the
@@ -213,7 +219,7 @@ Phases, each printing one JSON line:
      failed dial), every counter reads back its acknowledged value from a live server;
      then the rows the re-seat wrote back, drained and timed.
 19. the ``affinity_live`` group: the affinity feedback loop on ``TorchObjectPlacement`` on
-   the card, with both kernels' launch counts (0: ``greedy`` mode and the refine's plain
+   the card, with the four hand kernels' launch counts (0: ``greedy`` mode and the refine's plain
    ``sinkhorn``):
 
    - ``affinity_live``: ``rio_tpu_torch.bench.affinity_payoff`` (``bench.py``'s, at its
@@ -225,7 +231,7 @@ Phases, each printing one JSON line:
    - ``affinity_demo``: ``rio_tpu_torch.examples.affinity`` (8 pairs, its own >= 2x bar).
 20. the ``bench`` group: ``rio_tpu_torch.bench``'s tiers (``bench.py``'s device tiers) at
    the reference's sizes, each line holding the tier's result (with its device and power
-   limit), its launch counts of both kernels and its peak device memory:
+   limit), its launch counts of the four hand kernels and its peak device memory:
 
    - ``bench_solve``: the scaling kernel against its plain twin at 1,048,576 x 256
      bfloat16, one iteration, rtol 1e-4, and its time there beside the twin's and
@@ -257,7 +263,7 @@ Phases, each printing one JSON line:
    port's runtime on the card's host, with no device (``rio_tpu_torch.bench``'s runtime
    tiers, ``bench.py``'s host stages). The native library is built once first, so no
    two worker processes build it at once. Each phase prints the card's fields, ``host``
-   (cores, affinity mask, load average) and both kernels' launch counts over the group
+   (cores, affinity mask, load average) and the four hand kernels' launch counts over the group
    so far (0):
 
    - ``runtime_import``: fresh interpreters with a clean environment import
@@ -287,7 +293,7 @@ Phases, each printing one JSON line:
      scale-out, scale-in and retire in that order.
 
 23. the ``examples`` group: the last tier, examples and tool of the port, on the card,
-   each phase with both kernels' launch counts (0: the reference runs neither kernel
+   each phase with the four hand kernels' launch counts (0: the reference runs no kernel
    on these paths):
 
    - ``mesh_ab``: ``rio_tpu_torch.bench.hier_mesh_ab`` at ``bench.py``'s sizes,
@@ -316,7 +322,7 @@ Float32 sums are taken in another order on the card than in the plain twins
 (a per-CTA split of the column sums, a shuffle tree for each row), and the
 log-domain kernel multiplies by log2(e)/eps where the twin divides by eps and
 takes approximate base-2 exponentials: that is what the tolerances absorb.
-Neither kernel uses atomics.
+No kernel uses atomics.
 """
 
 from __future__ import annotations
@@ -340,6 +346,8 @@ RTOL_KERNEL = 1e-4
 RTOL_STEP = 1e-3
 ROUND_ROW_AGREEMENT = 0.999  # the rounding kernel's rows against its twin's (reordered sums)
 RTOL_ROUND_RES = 1e-5  # the sum of its row residuals against the twin's
+# The K-build kernel against its twin on the card: the same arithmetic, so the same bits.
+KBUILD_MAX_ULPS = {"f32": 0, "bf16": 0}
 # Log-domain kernel against its twin: |d| <= TOL (1 + |ref|) after one iteration,
 # TOL_STEP (1 + |ref|) after 30.
 TOL_LOGDOMAIN = 1e-4
@@ -453,22 +461,18 @@ END_REDUCED = {
     "cause": "the script's 900 s; a 10-minute run is made apart from the script",
 }
 # Runs python -m rio_tpu_torch.tools.endurance in a fresh process and prints, after
-# its summary, both kernels' launch counts there and its resident set at the end:
+# its summary, the four hand kernels' launch counts there and its resident set at the end:
 # the tool's own RSS is ru_maxrss, which a process started from this one inherits
 # (the peak of the process it was forked from).
 _ENDURANCE_CHILD = """
 import json, runpy, sys
-from rio_tpu_torch.ops import scaling as S
-from rio_tpu_torch.ops.pallas_sinkhorn import fused_iteration
-S.fused_scaling_iteration.launches = 0
-fused_iteration.launches = 0
+from chip_smoke import _launches, _reset_launches
+_reset_launches()
 sys.argv = ["rio_tpu_torch.tools.endurance", *sys.argv[1:]]
 runpy.run_module("rio_tpu_torch.tools.endurance", run_name="__main__", alter_sys=True)
 with open("/proc/self/status") as f:
     rss_kb = next(int(ln.split()[1]) for ln in f if ln.startswith("VmRSS:"))
-print(json.dumps({"launches": {"fused_scaling_iteration": S.fused_scaling_iteration.launches,
-                               "fused_iteration": fused_iteration.launches},
-                  "vm_rss_mb": rss_kb / 1024}), flush=True)
+print(json.dumps({"launches": _launches(), "vm_rss_mb": rss_kb / 1024}), flush=True)
 """
 
 
@@ -548,25 +552,29 @@ class _Member:
         self.active = active
 
 
-def _reset_launches() -> None:
+def _counted():
+    """The hand kernels' wrappers, each with its ``launches`` count, by name."""
+    from rio_tpu_torch.ops import cdf_round as CR
+    from rio_tpu_torch.ops import kbuild as KB
     from rio_tpu_torch.ops import scaling as S
     from rio_tpu_torch.ops.pallas_sinkhorn import fused_iteration
 
-    S.fused_scaling_iteration.launches = 0
-    fused_iteration.launches = 0
+    return {"fused_scaling_iteration": S.fused_scaling_iteration, "fused_iteration": fused_iteration,
+            "cdf_round": CR.cdf_round, "kbuild": KB.kbuild}
+
+
+def _reset_launches() -> None:
+    for fn in _counted().values():
+        fn.launches = 0
 
 
 def _launches() -> dict:
-    """Both kernels' launch counts since :func:`_reset_launches`."""
-    from rio_tpu_torch.ops import scaling as S
-    from rio_tpu_torch.ops.pallas_sinkhorn import fused_iteration
-
-    return {"fused_scaling_iteration": S.fused_scaling_iteration.launches,
-            "fused_iteration": fused_iteration.launches}
+    """The four hand kernels' launch counts since :func:`_reset_launches`."""
+    return {name: fn.launches for name, fn in _counted().items()}
 
 
 def _read_launches(what: str) -> dict:
-    """:func:`_launches`; the directory and hierarchical paths reach neither
+    """:func:`_launches`; the directory and hierarchical paths reach no hand
     kernel, so each must be 0."""
     launches = _launches()
     check(sum(launches.values()) == 0, f"{what} launched a kernel: {launches}")
@@ -1434,7 +1442,7 @@ async def mesh_phases(dev, card: dict, hier_assignment) -> tuple[dict, dict]:
     mesh = make_mesh([dev] * MESH_SHARDS)
     check(mesh.devices.shape == (4, 2) and not mesh.distributed, f"mesh {mesh}")
     out: dict = {}
-    launches_total = {"fused_scaling_iteration": 0, "fused_iteration": 0}
+    launches_total = dict.fromkeys(_counted(), 0)
 
     def count(launches: dict) -> dict:
         for k, v in launches.items():
@@ -2122,8 +2130,11 @@ def bench_phases(dev, card: dict, live: dict | None = None) -> int:
     solve, launches, peak = run_tier(
         lambda: B.solve_rate(n, n_nodes=N_NODES, cost=cost, device=dev), "solve_rate", kernel_ok=True
     )
-    want = {"fused_scaling_iteration": N_ITERS * solve["solves"], "fused_iteration": 0}
-    check(launches == want, f"solve_rate launches {launches}, want {want}")
+    # One K build a solve; the rounding kernel launches once a timed step.
+    want = {"fused_scaling_iteration": N_ITERS * solve["solves"], "fused_iteration": 0,
+            "kbuild": solve["solves"]}
+    check({k: launches[k] for k in want} == want and launches["cdf_round"] > 0,
+          f"solve_rate launches {launches}, want {want} and the rounding kernel")
     kernel_launches = launches["fused_scaling_iteration"]
     check(solve["max_load"] == solve["fair_load"], f"solve_rate max load {solve['max_load']}")
     check(solve["mean_cost"] < 0.25, f"solve_rate mean cost {solve['mean_cost']}")
@@ -2131,8 +2142,10 @@ def bench_phases(dev, card: dict, live: dict | None = None) -> int:
         lambda: B.solve_rate(n, n_nodes=m3, n_iters=BENCH_ROW3_ITERS, cost=cost3, device=dev),
         "row 3", kernel_ok=True,
     )
-    want3 = {"fused_scaling_iteration": BENCH_ROW3_ITERS * row3["solves"], "fused_iteration": 0}
-    check(launches3 == want3, f"row-3 launches {launches3}, want {want3}")
+    want3 = {"fused_scaling_iteration": BENCH_ROW3_ITERS * row3["solves"], "fused_iteration": 0,
+             "kbuild": row3["solves"]}
+    check({k: launches3[k] for k in want3} == want3 and launches3["cdf_round"] > 0,
+          f"row-3 launches {launches3}, want {want3} and the rounding kernel")
     kernel_launches += launches3["fused_scaling_iteration"]
     check(row3["max_load"] == row3["fair_load"], f"row-3 max load {row3['max_load']}")
     check(row3["mean_cost"] < RANDOM_MEAN_COST, f"row-3 mean cost {row3['mean_cost']}")
@@ -2324,6 +2337,7 @@ def main() -> int:
     from rio_tpu_torch import tracing
     from rio_tpu_torch.kernels import build
     from rio_tpu_torch.ops import cdf_round as CR
+    from rio_tpu_torch.ops import kbuild as KB
     from rio_tpu_torch.ops import scaling as S
     from rio_tpu_torch.ops.pallas_sinkhorn import fused_iteration, fused_iteration_ref, pallas_sinkhorn
     from rio_tpu_torch.ops.sinkhorn import (
@@ -2397,7 +2411,33 @@ def main() -> int:
 
     # -- 4. full width: kernel vs plain twin --------------------------------
     cost, mass, cap = make_problem(N_OBJ, N_NODES, seed=0, device=dev)
-    a, b, K, _ = S.scaling_kernel(cost, mass, cap, eps=EPS, kernel_dtype=torch.bfloat16)
+    a, b = normalize_marginals(mass, cap)
+    # The K-build kernel against its twin (the eager K build, run on the card).
+    kbuild_kernel = {}
+    for kdt, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        launches_before = KB.kbuild.launches
+        K, shift = KB.kbuild(cost, eps=EPS, kernel_dtype=kdt)
+        torch.cuda.synchronize()
+        kb_launches = KB.kbuild.launches - launches_before
+        K_p, shift_p = KB.kbuild_ref(cost, eps=EPS, kernel_dtype=kdt)
+        bits = torch.int32 if kdt == torch.float32 else torch.int16
+        ulps = (K.view(bits).int() - K_p.view(bits).int()).abs()  # K > 0: ulps apart
+        differ, max_ulps = int((ulps > 0).sum()), int(ulps.max())
+        shift_differ = int((shift != shift_p).sum())
+        del K_p, shift_p, ulps
+        check(kb_launches == 1, f"the K-build kernel launched {kb_launches} times")
+        check(shift_differ == 0 and max_ulps <= KBUILD_MAX_ULPS[name],
+              f"K-build kernel {name}: {differ} elements differ, by up to {max_ulps} ulps; "
+              f"{shift_differ} shifts differ")
+        kb_ms = cuda_median_ms(lambda: KB.kbuild(cost, eps=EPS, kernel_dtype=kdt), reps=20, batch=10)
+        kb_plain_ms = cuda_median_ms(lambda: KB.kbuild_ref(cost, eps=EPS, kernel_dtype=kdt), reps=5)
+        # The float32 cost read once, K written once, the float32 shift written once.
+        kb_bound_ms = N_OBJ * N_NODES * (4 + K.element_size()) + 4 * N_OBJ
+        kb_bound_ms = kb_bound_ms / HBM_BYTES_PER_S * 1e3
+        kbuild_kernel[name] = {"ms": kb_ms, "bound_ms": kb_bound_ms, "bound_share": kb_bound_ms / kb_ms,
+                               "plain_ms": kb_plain_ms, "launches": kb_launches,
+                               "elements_differ": differ, "max_ulps": max_ulps,
+                               "shifts_differ": shift_differ}
     v = torch.ones(N_NODES, device=dev)
     u_k, v_k = S.fused_scaling_iteration(K, a, b, v)
     torch.cuda.synchronize()
@@ -2423,6 +2463,7 @@ def main() -> int:
     # K once; u, a, q, v and vk read and idx and res written, 4 bytes each.
     round_bound_ms = (N_OBJ * N_NODES * 2 + 4 * (4 * N_OBJ + 2 * N_NODES) + 4 * N_OBJ) / HBM_BYTES_PER_S * 1e3
     emit("full_width", n=N_OBJ, m=N_NODES, rtol=RTOL_KERNEL, u_rel=eu, v_rel=ev, max_abs_err=max_abs,
+         kbuild_kernel=kbuild_kernel,
          round_kernel={"ms": round_ms, "bound_ms": round_bound_ms, "bound_share": round_bound_ms / round_ms,
                        "plain_ms": round_plain_ms, "launches": round_launches,
                        "row_agreement": round_agree, "res_sum_rel": res_rel})
@@ -2431,10 +2472,9 @@ def main() -> int:
     # -- 5. the main path ---------------------------------------------------
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    S.fused_scaling_iteration.launches = 0
-    CR.cdf_round.launches = 0
-    round_spans = []  # the ``impl`` of each placement.round span: "kernel", not "eager"
-    tracing.add_sink(lambda sp: sp.name == "placement.round" and round_spans.append(sp.attrs["impl"]))
+    _reset_launches()
+    impl = {"scaling.k_build": [], "placement.round": []}  # each span's ``impl``: "kernel", not "eager"
+    tracing.add_sink(lambda sp: sp.name in impl and impl[sp.name].append(sp.attrs["impl"]))
     t0 = time.perf_counter()
     try:
         assignment, mean_cost, err = placement_step(
@@ -2447,10 +2487,13 @@ def main() -> int:
         tracing.clear_sinks()
     launches = S.fused_scaling_iteration.launches
     round_launches = CR.cdf_round.launches
+    kbuild_launches = KB.kbuild.launches
     peak = torch.cuda.max_memory_allocated()
     check(launches == N_ITERS, f"kernel launched {launches} times, want {N_ITERS}")
-    check(round_launches == 1 and round_spans == ["kernel"],
-          f"the rounding kernel launched {round_launches} times (want 1), rounding spans {round_spans}")
+    check(round_launches == 1 and impl["placement.round"] == ["kernel"],
+          f"the rounding kernel launched {round_launches} times (want 1), rounding spans {impl}")
+    check(kbuild_launches == 1 and impl["scaling.k_build"] == ["kernel"],
+          f"the K-build kernel launched {kbuild_launches} times (want 1), K-build spans {impl}")
     check(assignment.shape == (N_OBJ,), "assignment shape")
     check(int(assignment.min()) >= 0 and int(assignment.max()) < N_NODES, "index range")
     loads = torch.bincount(assignment.long(), minlength=N_NODES)
@@ -2460,8 +2503,9 @@ def main() -> int:
     check(mean_cost < 0.25, f"mean assigned cost {mean_cost} (random placement: 0.50)")
     check(err == err and err < 1e-2, f"row-marginal error {err}")
     emit("main_path", n=N_OBJ, m=N_NODES, chunk=CHUNK, n_iters=N_ITERS, launches=launches,
-         round_launches=round_launches, round_impl=round_spans, quota=quota, mean_cost=mean_cost, row_marginal_err=err, first_step_s=step_s,
-         peak_bytes=peak)
+         round_launches=round_launches, round_impl=impl["placement.round"],
+         kbuild_launches=kbuild_launches, k_build_impl=impl["scaling.k_build"], quota=quota,
+         mean_cost=mean_cost, row_marginal_err=err, first_step_s=step_s, peak_bytes=peak)
     del assignment, loads
 
     # -- 6. whole step: kernel path vs plain path ---------------------------
@@ -2538,9 +2582,7 @@ def main() -> int:
     # -- 9. the log-domain path ------------------------------------------------
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    S.fused_scaling_iteration.launches = 0
-    fused_iteration.launches = 0
-    CR.cdf_round.launches = 0
+    _reset_launches()
     t0 = time.perf_counter()
     ld_assignment, ld_mean_cost, ld_err = logdomain_placement_step(
         cost, mass, cap, eps=EPS, n_iters=N_ITERS, chunk=CHUNK, device=dev,
@@ -2552,6 +2594,7 @@ def main() -> int:
     check(ld_launches == N_ITERS, f"log-domain kernel launched {ld_launches} times, want {N_ITERS}")
     check(S.fused_scaling_iteration.launches == 0, "the log-domain path launched the scaling kernel")
     check(CR.cdf_round.launches == 0, "the log-domain path launched the rounding kernel")
+    check(KB.kbuild.launches == 0, "the log-domain path launched the K-build kernel")
     check(ld_assignment.shape == (N_OBJ,), "log-domain assignment shape")
     loads = torch.bincount(ld_assignment.long(), minlength=N_NODES)
     check(loads.shape == (N_NODES,) and bool((loads == quota).all()),
@@ -2598,7 +2641,8 @@ def main() -> int:
     del pc, pm, pcap, res_k, res_u, f_p, g_p, asg_k, asg_r
 
     # -- 11. times at full width --------------------------------------------
-    a, b, K, _ = S.scaling_kernel(cost, mass, cap, eps=EPS, kernel_dtype=torch.bfloat16)
+    a, b = normalize_marginals(mass, cap)
+    K, _ = KB.kbuild(cost, eps=EPS, kernel_dtype=torch.bfloat16)
     u = torch.full((N_OBJ,), 1.0 / N_OBJ, device=dev)
     v = torch.ones(N_NODES, device=dev)
     launches_before = S.fused_scaling_iteration.launches
@@ -2624,8 +2668,9 @@ def main() -> int:
     rounded, _ = round_and_check(K, u, v)
     expected = cap / cap.sum() * N_OBJ
     stages_ms = {
-        "build_K": cuda_median_ms(
-            lambda: S.scaling_kernel(cost, mass, cap, eps=EPS, kernel_dtype=torch.bfloat16), reps=5
+        "build_K": cuda_median_ms(  # as fused_scaling_core: the marginals and the K-build kernel
+            lambda: (normalize_marginals(mass, cap), KB.kbuild(cost, eps=EPS, kernel_dtype=torch.bfloat16)),
+            reps=5,
         ),
         "solve_30_iters": cuda_median_ms(lambda: solve(K, a, b), reps=5),
         "round_and_check": cuda_median_ms(lambda: round_and_check(K, u, v), reps=5),

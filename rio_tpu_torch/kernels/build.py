@@ -22,7 +22,7 @@ from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("scaling_iteration", "logdomain_iteration", "cdf_round")
+SOURCES = ("scaling_iteration", "logdomain_iteration", "cdf_round", "kbuild")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

@@ -21,7 +21,7 @@ import ctypes
 
 import torch
 
-from .scaling import _K_DTYPES
+from .kbuild import _K_DTYPES
 from .sinkhorn import _quantiles, plan_rounded_assign_from_scaling, scaling_row_residuals
 
 # Rows per block of the plain twin (bounds its float32 temporaries).

@@ -23,8 +23,9 @@ Two implementations, with two bfloat16 semantics:
   what the wrapper runs for CPU tensors.
 
 :func:`scaling_core_auto` picks the kernel for CUDA tensors and the eager
-loop for CPU tensors. Both cores open the spans ``scaling.k_build`` and
-``scaling.iterations`` (:mod:`rio_tpu_torch.tracing`).
+loop for CPU tensors. Both cores open the spans ``scaling.k_build``
+(attribute ``impl``: ``"kernel"`` where the K-build kernel ran,
+``"eager"`` else) and ``scaling.iterations`` (:mod:`rio_tpu_torch.tracing`).
 
 :func:`scaling_kernel`, :func:`scaling_core` and :func:`scaling_sinkhorn`
 also take a leading batch axis: a ``(G, n, m)`` cost with ``(G, n)`` masses,
@@ -42,6 +43,7 @@ import ctypes
 import torch
 
 from ..tracing import span
+from .kbuild import _K_DTYPES, kbuild, kbuild_ref
 from .sinkhorn import SinkhornResult, _safe_log, marginal_err, normalize_marginals
 
 _NEG_INF = float("-inf")
@@ -78,20 +80,12 @@ def scaling_kernel(
     """The solve's fixed inputs: ``(a, b, K, row_shift)``.
 
     ``K = exp(-(C - shift) / eps)`` in ``kernel_dtype``, with a PER-ROW
-    min-shift: pure gauge (each row's shift is absorbed into its u), and it
-    keeps every row's best entry at exp(0) = 1, so no row underflows to all
-    zeros whatever the global cost range (a global shift breaks down once
-    range/eps >> 88). Rows whose minimum is not finite get shift 0.
+    min-shift (:func:`~rio_tpu_torch.ops.kbuild.kbuild_ref`); rows whose
+    minimum is not finite get shift 0.
     """
-    cost = cost.float()
     a, b = normalize_marginals(row_mass, col_capacity)
-    shift = cost.min(dim=-1, keepdim=True).values
-    shift = torch.where(torch.isfinite(shift), shift, 0.0)
-    # In place on the one float32 temporary: at 1M x 1024 each extra
-    # temporary is 4 GiB. x / (-eps) equals -x / eps exactly.
-    K = cost - shift
-    K.div_(-eps).exp_()
-    return a, b, K.to(kernel_dtype), shift[..., 0]
+    K, shift = kbuild_ref(cost, eps=eps, kernel_dtype=kernel_dtype)
+    return a, b, K, shift
 
 
 def scaling_core(
@@ -115,7 +109,7 @@ def scaling_core(
     ``g_init`` warm-starts ``v0`` from a previous solve's node potentials,
     gauged by its max (:func:`_warm_seed`); exponents are clipped at -60.
     """
-    with span("scaling.k_build"):
+    with span("scaling.k_build", impl="eager"):
         a, b, K, shift = scaling_kernel(
             cost, row_mass, col_capacity, eps=eps, kernel_dtype=kernel_dtype
         )
@@ -186,9 +180,6 @@ def scaling_sinkhorn(
 # ---------------------------------------------------------------------------
 # Fused iteration: one hand-written CUDA kernel, one read of K per iteration
 # ---------------------------------------------------------------------------
-
-_K_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-
 
 def _kernel_lib() -> ctypes.CDLL:
     from ..kernels.build import load
@@ -296,14 +287,16 @@ def fused_scaling_core(
 ):
     """Fused-kernel counterpart of :func:`scaling_core`: ``(u, v, K, shift)``.
 
-    Each iteration is one :func:`fused_scaling_iteration`. The kernel masks
-    ragged shapes itself, so K is neither padded nor copied; the returned
-    ``K`` is the (n, m) kernel matrix the rounding pass reuses.
+    K is built by :func:`~rio_tpu_torch.ops.kbuild.kbuild` (on the card one
+    launch of the K-build kernel, one read of the cost) and each iteration
+    is one :func:`fused_scaling_iteration`. The kernels mask ragged shapes
+    themselves, so K is neither padded nor copied; the returned ``K`` is
+    the (n, m) kernel matrix the rounding pass reuses.
     """
-    with span("scaling.k_build"):
-        a, b, K, shift = scaling_kernel(
-            cost, row_mass, col_capacity, eps=eps, kernel_dtype=kernel_dtype
-        )
+    on_card = cost.device.type == "cuda"
+    with span("scaling.k_build", impl="kernel" if on_card else "eager"):
+        a, b = normalize_marginals(row_mass, col_capacity)
+        K, shift = kbuild(cost.float().contiguous(), eps=eps, kernel_dtype=kernel_dtype)
     with span("scaling.iterations"):
         u = torch.zeros_like(a)
         v = torch.ones_like(b)

@@ -52,7 +52,7 @@ Phases, each printing one JSON line:
    x 1,024 nodes (``node_axis_size=1024``, eps 0.05, 30 iterations, move_cost 0.5;
    ``bench.py``'s ``_incremental_rate`` kills 3% of nodes), each phase printing its
    wall ms after ``torch.cuda.synchronize()``, ``stats.mode``, ``stats.solve_ms``,
-   ``moved`` and ``displaced``, and the launch counts of the four hand kernels over the phase
+   ``moved`` and ``displaced``, and the launch counts of the hand kernels over the phase
    (0: the directory reaches none):
 
    - ``directory_assign``: ``sync_members`` with 1,024 members, ``assign_batch`` of
@@ -75,7 +75,7 @@ Phases, each printing one JSON line:
 13. the ``hier`` group, BASELINE row 5: 10,485,760 objects on 1,024 nodes (a
    power-of-two bucket of 16,777,216 rows: 32 chunks of 524,288, 128 groups of 8,
    fine bucket 8,192, eps 0.05, 30 + 30 iterations), each phase with its wall ms,
-   peak device memory and the four hand kernels' launch counts (0), the provider phases with
+   peak device memory and the hand kernels' launch counts (0), the provider phases with
    ``stats.mode``, ``solve_ms``, ``apply_ms``, ``chunks``, ``chunk_ms``, moved and
    displaced:
 
@@ -83,9 +83,13 @@ Phases, each printing one JSON line:
      crc32s timed apart; on 65,536 of them the card's threefry words equal the CPU's
      and its features lie within 1e-6 of the CPU's;
    - ``hier_assign``: ``chunked_hierarchical_assign_timed`` on seeded features with 31
-     nodes dead: no overflow, no row on a dead node, live loads within 10% of fair; the
-     untimed form gives the same result; chunk 0 again on the CPU gives the same node
-     counts and >= 99% of rows on the same node;
+     nodes dead: no overflow, no row on a dead node, live loads within 10% of fair, one
+     coarse-score launch a chunk; the untimed form gives the same result, each chunk's
+     ``hier.coarse_score`` span reading ``impl="kernel"``; chunk 0 again on the CPU gives
+     the same node counts and >= 99% of rows on the same node; then the coarse-score kernel
+     alone at the benchmark cell's chunk (655,360 x 16 objects, 16 x 1,024 nodes, 32
+     groups) against its twin on the card (elements that differ, max |d|), its median ms
+     beside the 0.32 ms bound of its FMAs and the twin's ms;
    - ``hier_directory``: ``TorchObjectPlacement(affinity_tracker=AffinityTracker())``
      (``auto`` resolves to ``hierarchical``) at 1,048,576 objects: ``assign_batch``, a
      full rebalance in 2 chunks, 3:1 home:secondary traffic on the objects of 30 nodes
@@ -106,7 +110,7 @@ Phases, each printing one JSON line:
    with a ``merge_edges`` graph of 524,288 rows (half disjoint pairs, half 16-leaf stars,
    Zipf(1.1) byte rates over the rows' ranks, 10 calls/s); each phase prints wall ms,
    ``stats.mode``, ``solve_ms``, ``apply_ms``, moved, the refine's host preparation and
-   per-pass ms (its tracing spans), the pass history, peak device memory and the four hand kernels'
+   per-pass ms (its tracing spans), the pass history, peak device memory and the hand kernels'
    launch counts (0: the refine runs the plain ``sinkhorn``, as the reference does):
 
    - ``affinity_refine``: 1,048,576 objects, ``rebalance(delta=False)`` in mode
@@ -137,7 +141,7 @@ Phases, each printing one JSON line:
      Then ``persistent_times``.
 16. the ``mesh`` group: 8 shards of the one card (``make_mesh([cuda:0] * 8)``, a (4, 2)
    grid), each phase with its wall ms after ``torch.cuda.synchronize()``, peak device
-   memory and the four hand kernels' launch counts (0: inside the reference's ``shard_map`` runs
+   memory and the hand kernels' launch counts (0: inside the reference's ``shard_map`` runs
    plain ``jnp``), the provider phases with ``stats.mode``, ``devices``, ``chunks``,
    ``solve_ms``, ``apply_ms``, moved and displaced:
 
@@ -170,7 +174,7 @@ Phases, each printing one JSON line:
    Then ``mesh_times``.
 17. the ``live`` group: the port's own actor runtime (``Server``, ``Client``, gossip
    membership, the ``PlacementDaemon``) on loopback over ``TorchObjectPlacement`` on the
-   card, each phase with the four hand kernels' launch counts (0: the directory reaches no
+   card, each phase with the hand kernels' launch counts (0: the directory reaches no
    kernel, as the reference's does) and whether the C++ envelope codec served
    (``native``):
 
@@ -200,7 +204,7 @@ Phases, each printing one JSON line:
    files in a ``tempfile.mkdtemp()`` directory (``rio_tpu_torch.utils.durable_live``): 8
    servers on ``SqliteMembershipStorage``, ``PersistentTorchObjectPlacement`` on the card
    over ``SqliteObjectPlacement`` (``auto`` mode, the default ``flush_interval``) and
-   ``SqliteState`` behind 8,192 ``DurableCounter`` s; each phase with the four hand kernels' launch
+   ``SqliteState`` behind 8,192 ``DurableCounter`` s; each phase with the hand kernels' launch
    counts (0) and ``reduced`` (the cut of the object count and its cause):
 
    - ``durable_row2``: 59,000 echo objects (cut from 100,000: ``DUR_OBJ``) and the
@@ -219,7 +223,7 @@ Phases, each printing one JSON line:
      failed dial), every counter reads back its acknowledged value from a live server;
      then the rows the re-seat wrote back, drained and timed.
 19. the ``affinity_live`` group: the affinity feedback loop on ``TorchObjectPlacement`` on
-   the card, with the four hand kernels' launch counts (0: ``greedy`` mode and the refine's plain
+   the card, with the hand kernels' launch counts (0: ``greedy`` mode and the refine's plain
    ``sinkhorn``):
 
    - ``affinity_live``: ``rio_tpu_torch.bench.affinity_payoff`` (``bench.py``'s, at its
@@ -231,7 +235,7 @@ Phases, each printing one JSON line:
    - ``affinity_demo``: ``rio_tpu_torch.examples.affinity`` (8 pairs, its own >= 2x bar).
 20. the ``bench`` group: ``rio_tpu_torch.bench``'s tiers (``bench.py``'s device tiers) at
    the reference's sizes, each line holding the tier's result (with its device and power
-   limit), its launch counts of the four hand kernels and its peak device memory:
+   limit), its launch counts of the hand kernels and its peak device memory:
 
    - ``bench_solve``: the scaling kernel against its plain twin at 1,048,576 x 256
      bfloat16, one iteration, rtol 1e-4, and its time there beside the twin's and
@@ -246,7 +250,7 @@ Phases, each printing one JSON line:
    - ``bench_delta``: ``delta_churn_rate`` at 1,048,576 objects x 64 nodes: no undisplaced
      move, cost ratio <= 1 + 1e-6, the delta moved exactly the displaced;
    - ``bench_hier``: ``hier_rate``, BASELINE row 5 in 16 chunks of 655,360 rows: no
-     overflow, loads within 10% of fair, no kernel launch;
+     overflow, loads within 10% of fair, none of the flat kernels, one coarse-score launch a chunk;
    - ``bench_headline``: the reference's last line over these results and the live
      group's route hops (so it reads "measured p99 hops").
 21. ``profile``: ``torch.profiler`` (CPU and CUDA activities) over a short window of the
@@ -263,7 +267,7 @@ Phases, each printing one JSON line:
    port's runtime on the card's host, with no device (``rio_tpu_torch.bench``'s runtime
    tiers, ``bench.py``'s host stages). The native library is built once first, so no
    two worker processes build it at once. Each phase prints the card's fields, ``host``
-   (cores, affinity mask, load average) and the four hand kernels' launch counts over the group
+   (cores, affinity mask, load average) and the hand kernels' launch counts over the group
    so far (0):
 
    - ``runtime_import``: fresh interpreters with a clean environment import
@@ -293,7 +297,7 @@ Phases, each printing one JSON line:
      scale-out, scale-in and retire in that order.
 
 23. the ``examples`` group: the last tier, examples and tool of the port, on the card,
-   each phase with the four hand kernels' launch counts (0: the reference runs no kernel
+   each phase with the hand kernels' launch counts (0: the reference runs no kernel
    on these paths):
 
    - ``mesh_ab``: ``rio_tpu_torch.bench.hier_mesh_ab`` at ``bench.py``'s sizes,
@@ -313,6 +317,11 @@ Phases, each printing one JSON line:
      backing equal to the directory, RSS warm and final printed (the tool's
      ``ru_maxrss``, which includes the peak of this process, and the child's
      ``VmRSS`` at its end).
+
+Launch counts name five hand kernels: the flat step's four (``fused_scaling_iteration``,
+``fused_iteration``, ``cdf_round``, ``kbuild``), which a phase that says 0 holds at 0, and
+``coarse_scores``, which launches once in every ``hierarchical_assign`` call on the card
+(the hierarchical, tracker, mesh and routed at-scale paths) and nowhere else.
 
 Then the ``kernels`` line and, last, ``{"ok": true, "device": {...}}``. Any failed
 check raises, so the script exits non-zero and prints no result. Without a CUDA
@@ -362,6 +371,9 @@ HIER_DIR_OBJ, HIER_DIR_KILL = 1 << 20, 30
 HIER_SAMPLE = 65536
 HIER_TRACKER_PROBE = 64  # warmed (and as many cold) keys replayed on a CPU tracker
 TOL_HIER_FEATURES = 1e-6  # the card's hashed features against the CPU path's
+# The coarse-score kernel against its twin (cuBLAS's FFMA GEMM, masked_fill, amax) on the
+# card: the same FMA chain in the same order gives the same bits, so no element may differ.
+COARSE_MAX_DIFFER = 0
 HIER_LOAD_SLACK = 0.10  # live loads within 10% of fair (tests/test_hierarchical.py:226)
 HIER_ROW_AGREEMENT = 0.99  # one chunk on the card against the same chunk on the CPU
 # The affinity group: 1,048,576 objects on 128 hosts x 8 workers (one IP, eight
@@ -461,7 +473,7 @@ END_REDUCED = {
     "cause": "the script's 900 s; a 10-minute run is made apart from the script",
 }
 # Runs python -m rio_tpu_torch.tools.endurance in a fresh process and prints, after
-# its summary, the four hand kernels' launch counts there and its resident set at the end:
+# its summary, the hand kernels' launch counts there and its resident set at the end:
 # the tool's own RSS is ru_maxrss, which a process started from this one inherits
 # (the peak of the process it was forked from).
 _ENDURANCE_CHILD = """
@@ -552,15 +564,20 @@ class _Member:
         self.active = active
 
 
+# The flat step's hand kernels: no directory, hierarchical or runtime path reaches them.
+FLAT_KERNELS = ("fused_scaling_iteration", "fused_iteration", "cdf_round", "kbuild")
+
+
 def _counted():
     """The hand kernels' wrappers, each with its ``launches`` count, by name."""
     from rio_tpu_torch.ops import cdf_round as CR
+    from rio_tpu_torch.ops import coarse_score as CS
     from rio_tpu_torch.ops import kbuild as KB
     from rio_tpu_torch.ops import scaling as S
     from rio_tpu_torch.ops.pallas_sinkhorn import fused_iteration
 
     return {"fused_scaling_iteration": S.fused_scaling_iteration, "fused_iteration": fused_iteration,
-            "cdf_round": CR.cdf_round, "kbuild": KB.kbuild}
+            "cdf_round": CR.cdf_round, "kbuild": KB.kbuild, "coarse_scores": CS.coarse_scores}
 
 
 def _reset_launches() -> None:
@@ -569,15 +586,16 @@ def _reset_launches() -> None:
 
 
 def _launches() -> dict:
-    """The four hand kernels' launch counts since :func:`_reset_launches`."""
+    """The hand kernels' launch counts since :func:`_reset_launches`."""
     return {name: fn.launches for name, fn in _counted().items()}
 
 
 def _read_launches(what: str) -> dict:
-    """:func:`_launches`; the directory and hierarchical paths reach no hand
-    kernel, so each must be 0."""
+    """:func:`_launches`; the directory and hierarchical paths reach none of
+    the flat step's kernels, so each of those must be 0 (``coarse_scores``
+    counts the hierarchical paths' own kernel)."""
     launches = _launches()
-    check(sum(launches.values()) == 0, f"{what} launched a kernel: {launches}")
+    check(sum(launches[k] for k in FLAT_KERNELS) == 0, f"{what} launched a flat kernel: {launches}")
     return launches
 
 
@@ -843,12 +861,43 @@ def hier_assign_inputs(dev, dead):
     return obj, node, torch.ones(DIR_NODES, device=dev), alive.to(dev), kw, n_chunks
 
 
+def coarse_kernel_fields(obj, node, alive) -> dict:
+    """The coarse-score kernel alone at the benchmark cell's chunk (BENCH_HIER_CHUNK rows of
+    ``obj`` against ``node`` in BENCH_HIER_GROUPS groups): its result against the twin's on
+    the card (every node live, and ``alive``'s dead nodes off), its median ms against the
+    bound of its FMAs and the twin's ms."""
+    import torch
+
+    from rio_tpu_torch.ops import coarse_score as CS
+
+    x, groups = obj[:BENCH_HIER_CHUNK], BENCH_HIER_GROUPS
+    n, d = x.shape
+    m = node.shape[1]
+    everyone = torch.ones(m, dtype=torch.bool, device=node.device)
+    fields: dict = {"n": n, "d": d, "m": m, "groups": groups}
+    for name, live in (("all_live", everyone), ("dead_off", alive > 0)):
+        got = CS.coarse_scores(x, node, live, groups)
+        want = CS.coarse_scores_ref(x, node, live, groups)
+        finite = torch.isfinite(want)
+        differ = int((got != want).sum())
+        max_abs = float((got - want)[finite].abs().max())
+        check(torch.equal(finite, torch.isfinite(got)) and differ <= COARSE_MAX_DIFFER,
+              f"coarse-score kernel ({name}): {differ} elements differ, max |d| {max_abs}")
+        fields[name] = {"elements_differ": differ, "max_abs_diff": max_abs}
+    ms = cuda_median_ms(lambda: CS.coarse_scores(x, node, everyone, groups), reps=20, batch=10)
+    plain_ms = cuda_median_ms(lambda: CS.coarse_scores_ref(x, node, everyone, groups), reps=5)
+    bound_ms = 2 * n * m * d / F32_FLOPS_PER_S * 1e3
+    fields.update(ms=ms, bound_ms=bound_ms, bound_share=bound_ms / ms, plain_ms=plain_ms)
+    return fields
+
+
 async def hier_phases(dev, card: dict, keep: dict) -> dict:
     """The ``hier`` group (phase 13): returns the times it printed and puts
     ``hier_assign``'s assignment (numpy) into ``keep``."""
     import numpy as np
     import torch
 
+    from rio_tpu_torch import tracing
     from rio_tpu_torch.object_placement import AffinityTracker, TorchObjectPlacement
     from rio_tpu_torch.object_placement import torch_placement as tp
     from rio_tpu_torch.ops import prng
@@ -924,10 +973,18 @@ async def hier_phases(dev, card: dict, keep: dict) -> dict:
     assign_ms = (time.perf_counter() - t0) * 1e3
     launches = _read_launches("the hierarchical solve")
     peak = torch.cuda.max_memory_allocated()
+    check(launches["coarse_scores"] == n_chunks,
+          f"{launches['coarse_scores']} coarse-score launches for {n_chunks} chunks")
     check(int(res.overflow) == 0, f"overflow {int(res.overflow)}")
     spread = live_spread(np.bincount(assignment, minlength=DIR_NODES), set(dead), n_pad,
                          "hierarchical assign")
-    untimed = chunked_hierarchical_assign(obj, node, cap, alive, n_chunks=n_chunks, **kw)
+    coarse_impl = []  # each chunk's ``hier.coarse_score`` span: "kernel", not "eager"
+    tracing.add_sink(lambda sp: sp.name == "hier.coarse_score" and coarse_impl.append(sp.attrs["impl"]))
+    try:
+        untimed = chunked_hierarchical_assign(obj, node, cap, alive, n_chunks=n_chunks, **kw)
+    finally:
+        tracing.clear_sinks()
+    check(coarse_impl == ["kernel"] * n_chunks, f"coarse-score spans {coarse_impl}")
     check(torch.equal(untimed.assignment, res.assignment) and torch.equal(untimed.group, res.group)
           and int(untimed.overflow) == int(res.overflow), "untimed form differs from the timed form")
     # Chunk 0 again on the CPU, against its own share of the capacity.
@@ -940,13 +997,14 @@ async def hier_phases(dev, card: dict, keep: dict) -> dict:
           "chunk 0's node counts differ between the card and the CPU")
     check(agree >= HIER_ROW_AGREEMENT, f"chunk 0 rows agree {agree} with the CPU")
     keep["hier_assign"] = assignment  # mesh_hier's reference
+    coarse_kernel = coarse_kernel_fields(obj, node, alive)
     out.update(assign_ms=assign_ms, chunk_ms_median=statistics.median(chunk_ms),
                chunk_ms_first=chunk_ms[0], chunk_ms_max=max(chunk_ms))
     emit("hier_assign", **card, n=HIER_OBJ, rows=n_pad, m=DIR_NODES, dead=HIER_DEAD,
          groups=n_groups, chunks=n_chunks, bucket=bucket, n_iters=N_ITERS, wall_ms=assign_ms,
          chunk_ms=chunk_ms, overflow=int(res.overflow), live_loads=spread,
          coarse_residual=float(res.coarse_err), cpu_chunk_ms=cpu_ms, cpu_row_agreement=agree,
-         peak_bytes=peak, launches=launches)
+         coarse_impl=coarse_impl, coarse_kernel=coarse_kernel, peak_bytes=peak, launches=launches)
     del obj, node, res, untimed, cpu, assignment
 
     # -- hier_directory: AffinityTracker + auto -> hierarchical ------------------
@@ -2057,7 +2115,7 @@ def examples_phases(dev, card: dict) -> None:
     child = next(ln for ln in lines if "launches" in ln)
     launches = child["launches"]
     samples = [ln for ln in lines if "t_min" in ln]
-    check(sum(launches.values()) == 0, f"endurance launched a kernel: {launches}")
+    check(sum(launches[k] for k in FLAT_KERNELS) == 0, f"endurance launched a flat kernel: {launches}")
     check(summary["ok"] and summary["errors"] == 0, f"endurance {summary}")
     check(summary["backing_convergence"] == "exact", f"endurance backing {summary['backing_convergence']}")
     check(summary["churn_cycles"] >= 1 and summary["requests"] > 0, f"endurance {summary}")
@@ -2132,7 +2190,7 @@ def bench_phases(dev, card: dict, live: dict | None = None) -> int:
     )
     # One K build a solve; the rounding kernel launches once a timed step.
     want = {"fused_scaling_iteration": N_ITERS * solve["solves"], "fused_iteration": 0,
-            "kbuild": solve["solves"]}
+            "kbuild": solve["solves"], "coarse_scores": 0}
     check({k: launches[k] for k in want} == want and launches["cdf_round"] > 0,
           f"solve_rate launches {launches}, want {want} and the rounding kernel")
     kernel_launches = launches["fused_scaling_iteration"]
@@ -2143,7 +2201,7 @@ def bench_phases(dev, card: dict, live: dict | None = None) -> int:
         "row 3", kernel_ok=True,
     )
     want3 = {"fused_scaling_iteration": BENCH_ROW3_ITERS * row3["solves"], "fused_iteration": 0,
-             "kbuild": row3["solves"]}
+             "kbuild": row3["solves"], "coarse_scores": 0}
     check({k: launches3[k] for k in want3} == want3 and launches3["cdf_round"] > 0,
           f"row-3 launches {launches3}, want {want3} and the rounding kernel")
     kernel_launches += launches3["fused_scaling_iteration"]
@@ -2204,6 +2262,8 @@ def bench_phases(dev, card: dict, live: dict | None = None) -> int:
     fair = hier["fair_load"]
     check(hier["overflow"] == 0, f"hier_rate overflow {hier['overflow']}")
     check(hier["n_chunks"] == BENCH_HIER_OBJ // BENCH_HIER_CHUNK, f"hier_rate chunks {hier['n_chunks']}")
+    check(launches["coarse_scores"] > 0 and launches["coarse_scores"] % hier["n_chunks"] == 0,
+          f"hier_rate made {launches['coarse_scores']} coarse-score launches, not one a chunk")
     check((1 - HIER_LOAD_SLACK) * fair <= hier["min_load"] and hier["max_load"] <= (1 + HIER_LOAD_SLACK) * fair,
           f"hier_rate loads {hier['min_load']}..{hier['max_load']}, fair {fair}")
     detail["baseline_row5_hier"] = hier
@@ -2337,6 +2397,7 @@ def main() -> int:
     from rio_tpu_torch import tracing
     from rio_tpu_torch.kernels import build
     from rio_tpu_torch.ops import cdf_round as CR
+    from rio_tpu_torch.ops import coarse_score as CS
     from rio_tpu_torch.ops import kbuild as KB
     from rio_tpu_torch.ops import scaling as S
     from rio_tpu_torch.ops.pallas_sinkhorn import fused_iteration, fused_iteration_ref, pallas_sinkhorn
@@ -2489,6 +2550,7 @@ def main() -> int:
     round_launches = CR.cdf_round.launches
     kbuild_launches = KB.kbuild.launches
     peak = torch.cuda.max_memory_allocated()
+    check(CS.coarse_scores.launches == 0, "the main path launched the coarse-score kernel")
     check(launches == N_ITERS, f"kernel launched {launches} times, want {N_ITERS}")
     check(round_launches == 1 and impl["placement.round"] == ["kernel"],
           f"the rounding kernel launched {round_launches} times (want 1), rounding spans {impl}")
@@ -2595,6 +2657,7 @@ def main() -> int:
     check(S.fused_scaling_iteration.launches == 0, "the log-domain path launched the scaling kernel")
     check(CR.cdf_round.launches == 0, "the log-domain path launched the rounding kernel")
     check(KB.kbuild.launches == 0, "the log-domain path launched the K-build kernel")
+    check(CS.coarse_scores.launches == 0, "the log-domain path launched the coarse-score kernel")
     check(ld_assignment.shape == (N_OBJ,), "log-domain assignment shape")
     loads = torch.bincount(ld_assignment.long(), minlength=N_NODES)
     check(loads.shape == (N_NODES,) and bool((loads == quota).all()),

@@ -22,7 +22,7 @@ from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("scaling_iteration", "logdomain_iteration", "cdf_round", "kbuild")
+SOURCES = ("scaling_iteration", "logdomain_iteration", "cdf_round", "kbuild", "coarse_score")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

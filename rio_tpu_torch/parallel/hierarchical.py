@@ -18,7 +18,11 @@ Peak memory is O(N*G + G*B*S + N*d), never O(N*M).
 
 Each stage is a span of :mod:`rio_tpu_torch.tracing`: ``hier.coarse``,
 ``hier.bucket``, ``hier.fine`` and ``hier.map_back`` in every
-:func:`hierarchical_assign` call, so in every chunk and mesh cell.
+:func:`hierarchical_assign` call, so in every chunk and mesh cell. Inside
+``hier.coarse``, ``hier.coarse_score`` holds the scoring of the groups
+(:func:`~rio_tpu_torch.ops.coarse_score.coarse_scores`; attribute ``impl``:
+``kernel`` where the hand-written kernel ran, on CUDA tensors, ``eager`` on
+the CPU).
 
 :func:`chunked_hierarchical_assign` solves the object axis in chunks, each
 against ``1/n_chunks`` of every node's capacity. The JAX form runs the
@@ -50,6 +54,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..ops.coarse_score import coarse_scores
 from ..ops.prng import sqrt_rn
 from ..ops.scaling import scaling_sinkhorn
 from ..ops.sinkhorn import exact_quota_repair, plan_rounded_assign, route_sentinel_spill
@@ -65,12 +70,6 @@ __all__ = [
     "mesh_chunked_hierarchical_assign_timed",
     "sharded_hierarchical_assign",
 ]
-
-# The coarse stage scores all objects against one block of groups at a
-# time: an (N, groups_in_block * S) product of at most this many float32
-# elements (256 MiB), where JAX maps over single groups.
-_COARSE_BLOCK_ELEMS = 1 << 26
-
 
 class HierarchicalResult(NamedTuple):
     assignment: torch.Tensor  # (N,) int32 global node index
@@ -136,15 +135,11 @@ def hierarchical_assign(
     with span("hier.coarse"):
         # Coarse affinity = the object's best LIVE member in each group (a mean
         # embedding would dilute a single warm node by 1/S).
-        alive_grouped = (cap > 0).reshape(n_groups, s)
         group_cap = cap.reshape(n_groups, s).sum(dim=1)  # (G,)
-        coarse_aff = torch.empty((n, n_groups), dtype=torch.float32, device=dev)
-        block = max(1, min(n_groups, _COARSE_BLOCK_ELEMS // max(1, n * s)))
-        for g0 in range(0, n_groups, block):
-            g1 = min(n_groups, g0 + block)
-            scores = (obj_feat @ node_feat[:, g0 * s : g1 * s]).view(n, g1 - g0, s)
-            scores = scores.masked_fill(~alive_grouped[g0:g1], float("-inf"))
-            coarse_aff[:, g0:g1] = scores.amax(dim=-1)
+        with span("hier.coarse_score", impl="kernel" if dev.type == "cuda" else "eager"):
+            coarse_aff = coarse_scores(
+                obj_feat.contiguous(), node_feat.contiguous(), cap > 0, n_groups
+            )  # (N, G)
         live_group = group_cap > 0  # (G,)
         raw_cost = -coarse_aff  # (N, G); +inf on all-dead groups
         # Normalize the cost scale over LIVE groups only (eps becomes a relative

@@ -318,10 +318,11 @@ Phases, each printing one JSON line:
      ``ru_maxrss``, which includes the peak of this process, and the child's
      ``VmRSS`` at its end).
 
-Launch counts name five hand kernels: the flat step's four (``fused_scaling_iteration``,
-``fused_iteration``, ``cdf_round``, ``kbuild``), which a phase that says 0 holds at 0, and
-``coarse_scores``, which launches once in every ``hierarchical_assign`` call on the card
-(the hierarchical, tracker, mesh and routed at-scale paths) and nowhere else.
+Launch counts (``rio_tpu_torch.kernels.launch.launches``) name five hand kernels: the flat
+step's four (``fused_scaling_iteration``, ``fused_iteration``, ``cdf_round``, ``kbuild``),
+which a phase that says 0 holds at 0, and ``coarse_scores``, which launches once in every
+``hierarchical_assign`` call on the card (the hierarchical, tracker, mesh and routed at-scale
+paths) and nowhere else.
 
 Then the ``kernels`` line and, last, ``{"ok": true, "device": {...}}``. Any failed
 check raises, so the script exits non-zero and prints no result. Without a CUDA
@@ -568,26 +569,17 @@ class _Member:
 FLAT_KERNELS = ("fused_scaling_iteration", "fused_iteration", "cdf_round", "kbuild")
 
 
-def _counted():
-    """The hand kernels' wrappers, each with its ``launches`` count, by name."""
-    from rio_tpu_torch.ops import cdf_round as CR
-    from rio_tpu_torch.ops import coarse_score as CS
-    from rio_tpu_torch.ops import kbuild as KB
-    from rio_tpu_torch.ops import scaling as S
-    from rio_tpu_torch.ops.pallas_sinkhorn import fused_iteration
-
-    return {"fused_scaling_iteration": S.fused_scaling_iteration, "fused_iteration": fused_iteration,
-            "cdf_round": CR.cdf_round, "kbuild": KB.kbuild, "coarse_scores": CS.coarse_scores}
-
-
 def _reset_launches() -> None:
-    for fn in _counted().values():
-        fn.launches = 0
+    from rio_tpu_torch.kernels.launch import reset_launches
+
+    reset_launches()
 
 
 def _launches() -> dict:
-    """The hand kernels' launch counts since :func:`_reset_launches`."""
-    return {name: fn.launches for name, fn in _counted().items()}
+    """The hand kernels' launch counts since :func:`_reset_launches`, by wrapper name."""
+    from rio_tpu_torch.kernels.launch import launches
+
+    return launches()
 
 
 def _read_launches(what: str) -> dict:
@@ -1500,7 +1492,7 @@ async def mesh_phases(dev, card: dict, hier_assignment) -> tuple[dict, dict]:
     mesh = make_mesh([dev] * MESH_SHARDS)
     check(mesh.devices.shape == (4, 2) and not mesh.distributed, f"mesh {mesh}")
     out: dict = {}
-    launches_total = dict.fromkeys(_counted(), 0)
+    launches_total = dict.fromkeys(_launches(), 0)
 
     def count(launches: dict) -> dict:
         for k, v in launches.items():
@@ -2397,7 +2389,6 @@ def main() -> int:
     from rio_tpu_torch import tracing
     from rio_tpu_torch.kernels import build
     from rio_tpu_torch.ops import cdf_round as CR
-    from rio_tpu_torch.ops import coarse_score as CS
     from rio_tpu_torch.ops import kbuild as KB
     from rio_tpu_torch.ops import scaling as S
     from rio_tpu_torch.ops.pallas_sinkhorn import fused_iteration, fused_iteration_ref, pallas_sinkhorn
@@ -2476,10 +2467,10 @@ def main() -> int:
     # The K-build kernel against its twin (the eager K build, run on the card).
     kbuild_kernel = {}
     for kdt, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
-        launches_before = KB.kbuild.launches
+        launches_before = _launches()["kbuild"]
         K, shift = KB.kbuild(cost, eps=EPS, kernel_dtype=kdt)
         torch.cuda.synchronize()
-        kb_launches = KB.kbuild.launches - launches_before
+        kb_launches = _launches()["kbuild"] - launches_before
         K_p, shift_p = KB.kbuild_ref(cost, eps=EPS, kernel_dtype=kdt)
         bits = torch.int32 if kdt == torch.float32 else torch.int16
         ulps = (K.view(bits).int() - K_p.view(bits).int()).abs()  # K > 0: ulps apart
@@ -2509,10 +2500,10 @@ def main() -> int:
 
     # The CDF-rounding kernel on that iteration's state, against its twin.
     q = CR.chunk_quantiles(u_k, CHUNK)
-    launches_before = CR.cdf_round.launches
+    launches_before = _launches()["cdf_round"]
     idx_k, res_k = CR.cdf_round(K, u_k, v_k, a, q)
     torch.cuda.synchronize()
-    round_launches = CR.cdf_round.launches - launches_before
+    round_launches = _launches()["cdf_round"] - launches_before
     idx_p, res_p = CR.cdf_round_ref(K, u_k, v_k, a, q)
     round_agree = float((idx_k == idx_p).float().mean())
     res_rel = abs(float(res_k.sum()) - float(res_p.sum())) / float(res_p.sum())
@@ -2546,11 +2537,12 @@ def main() -> int:
         step_s = time.perf_counter() - t0
     finally:
         tracing.clear_sinks()
-    launches = S.fused_scaling_iteration.launches
-    round_launches = CR.cdf_round.launches
-    kbuild_launches = KB.kbuild.launches
+    counts = _launches()
+    launches = counts["fused_scaling_iteration"]
+    round_launches = counts["cdf_round"]
+    kbuild_launches = counts["kbuild"]
     peak = torch.cuda.max_memory_allocated()
-    check(CS.coarse_scores.launches == 0, "the main path launched the coarse-score kernel")
+    check(counts["coarse_scores"] == 0, "the main path launched the coarse-score kernel")
     check(launches == N_ITERS, f"kernel launched {launches} times, want {N_ITERS}")
     check(round_launches == 1 and impl["placement.round"] == ["kernel"],
           f"the rounding kernel launched {round_launches} times (want 1), rounding spans {impl}")
@@ -2651,13 +2643,14 @@ def main() -> int:
     )
     torch.cuda.synchronize()
     ld_step_s = time.perf_counter() - t0
-    ld_launches = fused_iteration.launches
+    counts = _launches()
+    ld_launches = counts["fused_iteration"]
     ld_peak = torch.cuda.max_memory_allocated()
     check(ld_launches == N_ITERS, f"log-domain kernel launched {ld_launches} times, want {N_ITERS}")
-    check(S.fused_scaling_iteration.launches == 0, "the log-domain path launched the scaling kernel")
-    check(CR.cdf_round.launches == 0, "the log-domain path launched the rounding kernel")
-    check(KB.kbuild.launches == 0, "the log-domain path launched the K-build kernel")
-    check(CS.coarse_scores.launches == 0, "the log-domain path launched the coarse-score kernel")
+    check(counts["fused_scaling_iteration"] == 0, "the log-domain path launched the scaling kernel")
+    check(counts["cdf_round"] == 0, "the log-domain path launched the rounding kernel")
+    check(counts["kbuild"] == 0, "the log-domain path launched the K-build kernel")
+    check(counts["coarse_scores"] == 0, "the log-domain path launched the coarse-score kernel")
     check(ld_assignment.shape == (N_OBJ,), "log-domain assignment shape")
     loads = torch.bincount(ld_assignment.long(), minlength=N_NODES)
     check(loads.shape == (N_NODES,) and bool((loads == quota).all()),
@@ -2708,7 +2701,7 @@ def main() -> int:
     K, _ = KB.kbuild(cost, eps=EPS, kernel_dtype=torch.bfloat16)
     u = torch.full((N_OBJ,), 1.0 / N_OBJ, device=dev)
     v = torch.ones(N_NODES, device=dev)
-    launches_before = S.fused_scaling_iteration.launches
+    launches_before = _launches()["fused_scaling_iteration"]
     kernel_ms = cuda_median_ms(lambda: S.fused_scaling_iteration(K, a, b, v), reps=20, batch=10)
     plain_ms = cuda_median_ms(lambda: S.fused_scaling_iteration_ref(K, a, b, v), reps=10, batch=3)
     v16, u16 = v.to(torch.bfloat16), u.to(torch.bfloat16)
@@ -2744,7 +2737,7 @@ def main() -> int:
         lambda: placement_step(cost, mass, cap, eps=EPS, n_iters=N_ITERS, chunk=CHUNK, device=dev),
         reps=10, warmup=1,
     )
-    check(S.fused_scaling_iteration.launches > launches_before, "timed the kernel")
+    check(_launches()["fused_scaling_iteration"] > launches_before, "timed the kernel")
     n, m = N_OBJ, N_NODES
     bytes_moved = n * m * 2 + 4 * (n + 2 * m) + 4 * (n + m)  # K, a, b, v in; u, v' out
     bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
@@ -2754,7 +2747,7 @@ def main() -> int:
     # The log-domain kernel, its twin and the two-sweep library form (what the
     # unfused sinkhorn runs; the port never calls it), on a converged g.
     f_ld, g_ld = ld_res.f, ld_res.g
-    launches_before = fused_iteration.launches
+    launches_before = _launches()["fused_iteration"]
     ld_kernel_ms = cuda_median_ms(
         lambda: fused_iteration(cost, log_a, log_b, g_ld, EPS), reps=20, batch=10
     )
@@ -2792,7 +2785,7 @@ def main() -> int:
         ),
         reps=5, warmup=1,
     )
-    check(fused_iteration.launches > launches_before, "timed the log-domain kernel")
+    check(_launches()["fused_iteration"] > launches_before, "timed the log-domain kernel")
     # Cost read once, log_a, log_b, g in; f, g' out. Two exponentials per element
     # at the SM's special-function rate and its highest clock.
     ld_bytes = 4 * n * m + 4 * (n + 2 * m) + 4 * (n + m)

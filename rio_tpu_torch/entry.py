@@ -6,11 +6,10 @@ the step that ``bench.py``'s solve tier times (``_solve_rate.step``):
 1. a scaling-form Sinkhorn solve (:func:`~rio_tpu_torch.ops.scaling.scaling_core_auto`:
    the fused CUDA kernel on the card, the eager loop on the CPU);
 2. capacity-aware CDF rounding from the scaling state, whole or ranked in
-   row chunks, and the row-marginal check: on the card one launch of the
-   CDF-rounding kernel (:func:`~rio_tpu_torch.ops.cdf_round.cdf_round`,
-   one read of K for both), on the CPU the eager
-   :func:`~rio_tpu_torch.ops.sinkhorn.plan_rounded_assign_from_scaling`
-   and :func:`row_marginal_err`;
+   row chunks, and the row-marginal check, both by
+   :func:`~rio_tpu_torch.ops.cdf_round.cdf_round`: on the card one launch
+   of the CDF-rounding kernel (one read of K for both), on the CPU its
+   plain twin;
 3. largest-remainder exact-quota repair
    (:func:`~rio_tpu_torch.ops.sinkhorn.exact_quota_repair`).
 
@@ -35,6 +34,7 @@ import numpy as np
 import torch
 
 from .device import resolve_device
+from .kernels.launch import impl_for
 from .ops.assignment import build_cost_matrix
 from .ops.cdf_round import cdf_round, chunk_quantiles
 from .ops.pallas_sinkhorn import pallas_sinkhorn
@@ -43,7 +43,6 @@ from .ops.sinkhorn import (
     exact_quota_repair,
     normalize_marginals,
     plan_rounded_assign,
-    plan_rounded_assign_from_scaling,
     scaling_row_residuals,
     sinkhorn,
 )
@@ -101,20 +100,10 @@ def _by_row_chunks(n: int, chunk: int | None, round_rows) -> torch.Tensor:
     return torch.cat([round_rows(slice(i, i + chunk)) for i in range(0, n, chunk)])
 
 
-def round_from_scaling(K, u, v, *, chunk: int | None = None) -> torch.Tensor:
-    """Step 2: CDF rounding of the plan ``diag(u) K diag(v)``, whole or in row chunks.
-
-    ``chunk`` as in :func:`_by_row_chunks`.
-    """
-    return _by_row_chunks(
-        K.shape[0], chunk, lambda rows: plan_rounded_assign_from_scaling(K[rows], u[rows], v)
-    )
-
-
 def round_from_potentials(cost, f, g, eps: float, *, chunk: int | None = None) -> torch.Tensor:
     """CDF rounding of the plan ``exp((f + g - C)/eps)``, whole or in row chunks.
 
-    :func:`round_from_scaling` for a log-domain solve, over
+    The log-domain step's rounding, over
     :func:`~rio_tpu_torch.ops.sinkhorn.plan_rounded_assign`; chunks bound
     its softmax and cumsum temporaries to ``chunk`` rows (see
     :func:`_by_row_chunks`).
@@ -134,21 +123,17 @@ def repair_to_quota(assignment, cost, cap):
 def round_and_repair(cost, mass, cap, u, v, K, *, chunk: int | None = None):
     """Steps 2 and 3 on a solve's state: ``(assignment, mean_cost, row_marginal_err)``.
 
-    On a CUDA K the rounding and the row check are one launch of
+    The rounding and the row check are one call of
     :func:`~rio_tpu_torch.ops.cdf_round.cdf_round`, which ranks each block
-    of ``chunk`` rows as :func:`round_from_scaling` does, and the check
-    sums the residuals it wrote; on a CPU K they are
-    :func:`round_from_scaling` and :func:`row_marginal_err`.
+    of ``chunk`` rows on its own (see :func:`_by_row_chunks`): on a CUDA K
+    one launch of the kernel, on a CPU K its plain twin. The check sums the
+    residuals it wrote.
     """
-    on_card = K.device.type == "cuda"
-    with span("placement.round", impl="kernel" if on_card else "eager"):
-        if on_card:
-            a, _ = normalize_marginals(mass, cap)
-            rounded, res = cdf_round(K, u, v, a, chunk_quantiles(u, chunk))
-        else:
-            rounded = round_from_scaling(K, u, v, chunk=chunk)
+    with span("placement.round", impl=impl_for(K)):
+        a, _ = normalize_marginals(mass, cap)
+        rounded, res = cdf_round(K, u, v, a, chunk_quantiles(u, chunk))
     with span("placement.row_check"):
-        err = res.sum() if on_card else row_marginal_err(K, u, v, mass, cap)
+        err = res.sum()
     with span("placement.repair"):
         assignment, mean_cost = repair_to_quota(rounded, cost, cap)
     return assignment, mean_cost, err

@@ -1,8 +1,10 @@
 """Build the port's CUDA sources into shared libraries, at first use.
 
-Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
-for Hopper (``sm_90a``) into ``_build/lib<name>-<hash>.so``, keyed by a hash
-of the source and the flags, then loaded with ``ctypes``. Nothing but the
+Each ``csrc/<name>.cu`` of :data:`SOURCES` (the stems of
+:data:`~rio_tpu_torch.kernels.launch.KERNELS`) has a plain C interface and
+is compiled by ``nvcc`` for Hopper (``sm_90a``) into
+``_build/lib<name>-<hash>.so``, keyed by a hash of the source and the
+flags, then loaded with ``ctypes``. Nothing but the
 sources in this package goes into a build. :func:`build` starts one
 ``nvcc`` per missing library, all at once, and waits for every one of them.
 
@@ -20,9 +22,12 @@ import subprocess
 import threading
 from pathlib import Path
 
+from .launch import KERNELS
+
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("scaling_iteration", "logdomain_iteration", "cdf_round", "kbuild", "coarse_score")
+_BY_STEM = {k.stem: k for k in KERNELS.values()}
+SOURCES = tuple(_BY_STEM)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -86,10 +91,16 @@ def build(names=SOURCES) -> dict[str, str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The library built from ``csrc/<name>.cu``, built first if it is missing."""
+    """The library built from ``csrc/<name>.cu``, built first if it is missing.
+
+    Its entry points' signatures are declared once, under the lock, when
+    it is first loaded (:meth:`~rio_tpu_torch.kernels.launch.Kernel.bind`).
+    """
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
             build([name])
-            lib = _loaded[name] = ctypes.CDLL(str(library_path(name)))
+            lib = ctypes.CDLL(str(library_path(name)))
+            _BY_STEM[name].bind(lib)
+            _loaded[name] = lib
         return lib

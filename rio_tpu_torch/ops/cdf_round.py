@@ -2,13 +2,14 @@
 
 The step after a scaling solve rounds the plan ``diag(u) K diag(v)`` row
 by row (:func:`~rio_tpu_torch.ops.sinkhorn.plan_rounded_assign_from_scaling`)
-and checks the row marginals (``rio_tpu_torch.entry.row_marginal_err``).
-Both read all of K. :func:`cdf_round` does both in one pass: on CUDA
-tensors one launch of a hand-written kernel
-(``kernels/csrc/cdf_round.cu``), on CPU tensors its plain twin
-:func:`cdf_round_ref`. The kernel has no counterpart among the JAX
-package's Pallas kernels; its sums run in another order than
-``torch.cumsum``'s and ``torch.matmul``'s.
+and checks the row marginals, the sum of each row's residual
+(:func:`~rio_tpu_torch.ops.sinkhorn.scaling_row_residuals`). Both read
+all of K. :func:`cdf_round` does both in one pass: on CUDA tensors one
+launch of a hand-written kernel (``kernels/csrc/cdf_round.cu``), on CPU
+tensors its plain twin :func:`cdf_round_ref`; the step
+(:func:`~rio_tpu_torch.entry.round_and_repair`) calls it on either. The
+kernel has no counterpart among the JAX package's Pallas kernels; its sums
+run in another order than ``torch.cumsum``'s and ``torch.matmul``'s.
 
 Each row's quantile ``q`` comes from :func:`chunk_quantiles`, the ranks
 that :func:`~rio_tpu_torch.ops.sinkhorn.plan_rounded_assign_from_scaling`
@@ -17,11 +18,9 @@ gives each block of ``chunk`` rows when it is called block by block.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from .kbuild import _K_DTYPES
+from ..kernels.launch import K_DTYPES, check_operands, impl_for, launch
 from .sinkhorn import _quantiles, plan_rounded_assign_from_scaling, scaling_row_residuals
 
 # Rows per block of the plain twin (bounds its float32 temporaries).
@@ -48,18 +47,9 @@ def _check_args(K, u, v, a, q) -> None:
     n, m = K.shape
     if m == 0:
         raise ValueError("K needs at least one column")
-    if K.dtype not in _K_DTYPES:
+    if K.dtype not in K_DTYPES:
         raise TypeError(f"K must be float32 or bfloat16, got {K.dtype}")
-    for name, x, size in (("u", u, n), ("v", v, m), ("a", a, n), ("q", q, n)):
-        if x.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {x.dtype}")
-        if tuple(x.shape) != (size,):
-            raise ValueError(f"{name} must have shape ({size},), got {tuple(x.shape)}")
-    for name, x in (("K", K), ("u", u), ("v", v), ("a", a), ("q", q)):
-        if x.device != K.device:
-            raise ValueError(f"{name} is on {x.device}, K on {K.device}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    check_operands("K", K, ("u", u, n), ("v", v, m), ("a", a, n), ("q", q, n))
 
 
 def cdf_round_ref(
@@ -83,19 +73,6 @@ def cdf_round_ref(
     return idx, res
 
 
-def _kernel_lib() -> ctypes.CDLL:
-    from ..kernels.build import load
-
-    lib = load("cdf_round")
-    lib.cdf_round_launch.argtypes = [
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-        ctypes.c_void_p,
-    ]
-    lib.cdf_round_launch.restype = ctypes.c_int
-    return lib
-
-
 def cdf_round(
     K: torch.Tensor, u: torch.Tensor, v: torch.Tensor, a: torch.Tensor, q: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -104,28 +81,17 @@ def cdf_round(
     For CUDA tensors this launches the CUDA kernel once on the current
     stream, or raises; for CPU tensors it runs :func:`cdf_round_ref`. K is
     (n, m) float32 or bfloat16; u (n,), v (m,), a (n,) and q (n,) are
-    float32; all contiguous, on one device. ``cdf_round.launches`` counts
-    kernel launches.
+    float32; all contiguous, on one device. Launches are counted under
+    ``"cdf_round"`` in :mod:`rio_tpu_torch.kernels.launch`.
     """
     _check_args(K, u, v, a, q)
-    if K.device.type == "cpu":
+    if impl_for(K) == "eager":
         return cdf_round_ref(K, u, v, a, q)
-    if K.device.type != "cuda":
-        raise ValueError(f"no kernel for device {K.device}")
     n, m = K.shape
-    lib = _kernel_lib()
-    with torch.cuda.device(K.device):
-        idx = torch.empty(n, dtype=torch.int32, device=K.device)
-        res = torch.empty(n, dtype=torch.float32, device=K.device)
-        stream = torch.cuda.current_stream(K.device).cuda_stream
-        rc = lib.cdf_round_launch(
-            _K_DTYPES[K.dtype], K.data_ptr(), u.data_ptr(), v.data_ptr(), a.data_ptr(),
-            q.data_ptr(), idx.data_ptr(), res.data_ptr(), n, m, stream,
-        )
-    if rc:
-        raise RuntimeError(f"CDF rounding kernel failed to launch: CUDA error {rc}")
-    cdf_round.launches += int(n > 0)  # nothing is launched for no rows
+    idx = torch.empty(n, dtype=torch.int32, device=K.device)
+    res = torch.empty(n, dtype=torch.float32, device=K.device)
+    launch(
+        "cdf_round", K, K_DTYPES[K.dtype], K.data_ptr(), u.data_ptr(), v.data_ptr(), a.data_ptr(),
+        q.data_ptr(), idx.data_ptr(), res.data_ptr(), n, m, rows=n,
+    )
     return idx, res
-
-
-cdf_round.launches = 0

@@ -15,9 +15,9 @@ order, as a single-pass FFMA GEMM tile computes it.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
+
+from ..kernels.launch import impl_for, launch
 
 # The twin scores all objects against one block of groups at a time: an
 # (N, groups_in_block * S) product of at most this many float32 elements
@@ -71,18 +71,6 @@ def _check_args(obj_feat, node_feat, live, n_groups) -> None:
         raise ValueError("obj_feat, node_feat and live must be contiguous")
 
 
-def _kernel_lib() -> ctypes.CDLL:
-    from ..kernels.build import load
-
-    lib = load("coarse_score")
-    lib.coarse_score_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
-    ]
-    lib.coarse_score_launch.restype = ctypes.c_int
-    return lib
-
-
 def coarse_scores(
     obj_feat: torch.Tensor, node_feat: torch.Tensor, live: torch.Tensor, n_groups: int,
 ) -> torch.Tensor:
@@ -92,28 +80,17 @@ def coarse_scores(
     (M,) bool, all contiguous and on one device; M splits into ``n_groups``
     groups of consecutive nodes. For CUDA tensors this launches the CUDA
     kernel once on the current stream, or raises; for CPU tensors it runs
-    :func:`coarse_scores_ref`. ``coarse_scores.launches`` counts kernel
-    launches.
+    :func:`coarse_scores_ref`. Launches are counted under
+    ``"coarse_scores"`` in :mod:`rio_tpu_torch.kernels.launch`.
     """
     _check_args(obj_feat, node_feat, live, n_groups)
-    if obj_feat.device.type == "cpu":
+    if impl_for(obj_feat) == "eager":
         return coarse_scores_ref(obj_feat, node_feat, live, n_groups)
-    if obj_feat.device.type != "cuda":
-        raise ValueError(f"no kernel for device {obj_feat.device}")
     n, d = obj_feat.shape
     m = node_feat.shape[1]
-    lib = _kernel_lib()
-    with torch.cuda.device(obj_feat.device):
-        out = torch.empty((n, n_groups), dtype=torch.float32, device=obj_feat.device)
-        stream = torch.cuda.current_stream(obj_feat.device).cuda_stream
-        rc = lib.coarse_score_launch(
-            obj_feat.data_ptr(), node_feat.data_ptr(), live.data_ptr(), out.data_ptr(), n, d, m,
-            n_groups, stream,
-        )
-    if rc:
-        raise RuntimeError(f"coarse-score kernel failed to launch: CUDA error {rc}")
-    coarse_scores.launches += int(n > 0)  # nothing is launched for no rows
+    out = torch.empty((n, n_groups), dtype=torch.float32, device=obj_feat.device)
+    launch(
+        "coarse_scores", obj_feat, obj_feat.data_ptr(), node_feat.data_ptr(), live.data_ptr(),
+        out.data_ptr(), n, d, m, n_groups, rows=n,
+    )
     return out
-
-
-coarse_scores.launches = 0

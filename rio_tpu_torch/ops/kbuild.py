@@ -13,13 +13,10 @@ scalar as a multiply by its float32 reciprocal.
 
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 
-# The dtype codes the port's kernels take for K.
-_K_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+from ..kernels.launch import K_DTYPES, check_operands, impl_for, launch
 
 
 def kbuild_ref(cost: torch.Tensor, *, eps: float, kernel_dtype: torch.dtype):
@@ -49,22 +46,9 @@ def _check_args(cost, kernel_dtype) -> None:
         raise ValueError("cost needs at least one column")
     if cost.dtype != torch.float32:
         raise TypeError(f"cost must be float32, got {cost.dtype}")
-    if kernel_dtype not in _K_DTYPES:
+    if kernel_dtype not in K_DTYPES:
         raise TypeError(f"K must be float32 or bfloat16, got {kernel_dtype}")
-    if not cost.is_contiguous():
-        raise ValueError("cost must be contiguous")
-
-
-def _kernel_lib() -> ctypes.CDLL:
-    from ..kernels.build import load
-
-    lib = load("kbuild")
-    lib.kbuild_launch.argtypes = [
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-        ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p,
-    ]
-    lib.kbuild_launch.restype = ctypes.c_int
-    return lib
+    check_operands("cost", cost)
 
 
 def kbuild(cost: torch.Tensor, *, eps: float, kernel_dtype: torch.dtype):
@@ -73,30 +57,19 @@ def kbuild(cost: torch.Tensor, *, eps: float, kernel_dtype: torch.dtype):
     For CUDA tensors this launches the CUDA kernel once on the current
     stream, or raises; for CPU tensors it runs :func:`kbuild_ref`. ``cost``
     is (n, m) float32 and contiguous; K is (n, m) in ``kernel_dtype``
-    (float32 or bfloat16), ``shift`` (n,) float32. ``kbuild.launches``
-    counts kernel launches.
+    (float32 or bfloat16), ``shift`` (n,) float32. Launches are counted
+    under ``"kbuild"`` in :mod:`rio_tpu_torch.kernels.launch`.
     """
     _check_args(cost, kernel_dtype)
-    if cost.device.type == "cpu":
+    if impl_for(cost) == "eager":
         return kbuild_ref(cost, eps=eps, kernel_dtype=kernel_dtype)
-    if cost.device.type != "cuda":
-        raise ValueError(f"no kernel for device {cost.device}")
     n, m = cost.shape
     # PyTorch's division of a CUDA tensor by a host scalar: times 1 / scalar in float32.
     scale = float(np.float32(1.0) / np.float32(-eps))
-    lib = _kernel_lib()
-    with torch.cuda.device(cost.device):
-        K = torch.empty((n, m), dtype=kernel_dtype, device=cost.device)
-        shift = torch.empty(n, dtype=torch.float32, device=cost.device)
-        stream = torch.cuda.current_stream(cost.device).cuda_stream
-        rc = lib.kbuild_launch(
-            _K_DTYPES[kernel_dtype], cost.data_ptr(), K.data_ptr(), shift.data_ptr(), n, m, scale,
-            stream,
-        )
-    if rc:
-        raise RuntimeError(f"K-build kernel failed to launch: CUDA error {rc}")
-    kbuild.launches += int(n > 0)  # nothing is launched for no rows
+    K = torch.empty((n, m), dtype=kernel_dtype, device=cost.device)
+    shift = torch.empty(n, dtype=torch.float32, device=cost.device)
+    launch(
+        "kbuild", cost, K_DTYPES[kernel_dtype], cost.data_ptr(), K.data_ptr(), shift.data_ptr(),
+        n, m, scale, rows=n,
+    )
     return K, shift
-
-
-kbuild.launches = 0

@@ -17,10 +17,9 @@ Zero-mass rows get ``f = -inf``, zero-capacity columns ``g = -inf``.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
+from ..kernels.launch import check_operands, impl_for, launch, parts
 from .sinkhorn import SinkhornResult, log_marginals, marginal_err, normalize_marginals
 
 _NEG_INF = float("-inf")
@@ -60,38 +59,15 @@ def fused_iteration_ref(
     return f, torch.where(torch.isfinite(log_b), g_new, _NEG_INF)
 
 
-def _kernel_lib() -> ctypes.CDLL:
-    from ..kernels.build import load
-
-    lib = load("logdomain_iteration")
-    lib.logdomain_iteration_parts.argtypes = [
-        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.POINTER(ctypes.c_int),
-    ]
-    lib.logdomain_iteration_parts.restype = ctypes.c_int
-    lib.logdomain_iteration_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
-        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
-    ]
-    lib.logdomain_iteration_launch.restype = ctypes.c_int
-    return lib
-
-
 def _check_iteration_args(cost, log_a, log_b, g, eps) -> None:
     if cost.dim() != 2:
         raise ValueError(f"cost must be 2-D, got shape {tuple(cost.shape)}")
     n, m = cost.shape
     if m == 0:
         raise ValueError("cost needs at least one column")
-    for name, x, size in (("cost", cost, None), ("log_a", log_a, n), ("log_b", log_b, m), ("g", g, m)):
-        if x.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {x.dtype}")
-        if size is not None and tuple(x.shape) != (size,):
-            raise ValueError(f"{name} must have shape ({size},), got {tuple(x.shape)}")
-        if x.device != cost.device:
-            raise ValueError(f"{name} is on {x.device}, cost on {cost.device}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    if cost.dtype != torch.float32:
+        raise TypeError(f"cost must be float32, got {cost.dtype}")
+    check_operands("cost", cost, ("log_a", log_a, n), ("log_b", log_b, m), ("g", g, m))
     if not float(eps) > 0.0:
         raise ValueError(f"eps must be positive, got {eps}")
 
@@ -109,37 +85,23 @@ def fused_iteration(
     the current stream, or raises; for CPU tensors it runs
     :func:`fused_iteration_ref`. ``cost`` is (n, m) float32; ``log_a`` (n,),
     ``log_b`` (m,) and ``g`` (m,) are float32; all contiguous, on one
-    device. ``fused_iteration.launches`` counts kernel launches.
+    device. Launches are counted under ``"fused_iteration"`` in
+    :mod:`rio_tpu_torch.kernels.launch`.
     """
     _check_iteration_args(cost, log_a, log_b, g, eps)
-    if cost.device.type == "cpu":
+    if impl_for(cost) == "eager":
         return fused_iteration_ref(cost, log_a, log_b, g, eps)
-    if cost.device.type != "cuda":
-        raise ValueError(f"no kernel for device {cost.device}")
     n, m = cost.shape
-    lib = _kernel_lib()
-    with torch.cuda.device(cost.device):
-        parts = ctypes.c_int(0)
-        rc = lib.logdomain_iteration_parts(cost.data_ptr(), n, m, ctypes.byref(parts))
-        if rc:
-            raise RuntimeError(f"logdomain_iteration_parts failed: CUDA error {rc}")
-        f = torch.empty(n, dtype=torch.float32, device=cost.device)
-        g_new = torch.empty(m, dtype=torch.float32, device=cost.device)
-        # (n_parts, m) pairs of (column max, rebased column sum).
-        workspace = torch.empty((parts.value, m, 2), dtype=torch.float32, device=cost.device)
-        stream = torch.cuda.current_stream(cost.device).cuda_stream
-        rc = lib.logdomain_iteration_launch(
-            cost.data_ptr(), log_a.data_ptr(), log_b.data_ptr(), g.data_ptr(),
-            f.data_ptr(), g_new.data_ptr(), workspace.data_ptr(), parts.value,
-            float(eps), n, m, stream,
-        )
-    if rc:
-        raise RuntimeError(f"log-domain iteration kernel failed to launch: CUDA error {rc}")
-    fused_iteration.launches += 1
+    n_parts = parts("fused_iteration", cost, cost.data_ptr(), n, m)
+    f = torch.empty(n, dtype=torch.float32, device=cost.device)
+    g_new = torch.empty(m, dtype=torch.float32, device=cost.device)
+    # (n_parts, m) pairs of (column max, rebased column sum).
+    workspace = torch.empty((n_parts, m, 2), dtype=torch.float32, device=cost.device)
+    launch(
+        "fused_iteration", cost, cost.data_ptr(), log_a.data_ptr(), log_b.data_ptr(), g.data_ptr(),
+        f.data_ptr(), g_new.data_ptr(), workspace.data_ptr(), n_parts, float(eps), n, m, rows=n,
+    )
     return f, g_new
-
-
-fused_iteration.launches = 0
 
 
 def pallas_sinkhorn(

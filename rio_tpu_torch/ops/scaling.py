@@ -38,12 +38,11 @@ them to a tolerance, not to equal bits.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
+from ..kernels.launch import K_DTYPES, check_operands, impl_for, launch, parts
 from ..tracing import span
-from .kbuild import _K_DTYPES, kbuild, kbuild_ref
+from .kbuild import kbuild, kbuild_ref
 from .sinkhorn import SinkhornResult, _safe_log, marginal_err, normalize_marginals
 
 _NEG_INF = float("-inf")
@@ -181,42 +180,15 @@ def scaling_sinkhorn(
 # Fused iteration: one hand-written CUDA kernel, one read of K per iteration
 # ---------------------------------------------------------------------------
 
-def _kernel_lib() -> ctypes.CDLL:
-    from ..kernels.build import load
-
-    lib = load("scaling_iteration")
-    lib.scaling_iteration_parts.argtypes = [
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-        ctypes.POINTER(ctypes.c_int),
-    ]
-    lib.scaling_iteration_parts.restype = ctypes.c_int
-    lib.scaling_iteration_launch.argtypes = [
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
-    ]
-    lib.scaling_iteration_launch.restype = ctypes.c_int
-    return lib
-
-
 def _check_iteration_args(K, a, b, v) -> None:
     if K.dim() != 2:
         raise ValueError(f"K must be 2-D, got shape {tuple(K.shape)}")
     n, m = K.shape
     if m == 0:
         raise ValueError("K needs at least one column")
-    if K.dtype not in _K_DTYPES:
+    if K.dtype not in K_DTYPES:
         raise TypeError(f"K must be float32 or bfloat16, got {K.dtype}")
-    for name, x, size in (("a", a, n), ("b", b, m), ("v", v, m)):
-        if x.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {x.dtype}")
-        if tuple(x.shape) != (size,):
-            raise ValueError(f"{name} must have shape ({size},), got {tuple(x.shape)}")
-    for name, x in (("K", K), ("a", a), ("b", b), ("v", v)):
-        if x.device != K.device:
-            raise ValueError(f"{name} is on {x.device}, K on {K.device}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    check_operands("K", K, ("a", a, n), ("b", b, m), ("v", v, m))
 
 
 def fused_scaling_iteration_ref(
@@ -243,37 +215,23 @@ def fused_scaling_iteration(
     current stream, or raises; for CPU tensors it runs
     :func:`fused_scaling_iteration_ref`. K is (n, m) float32 or bfloat16;
     a (n,), b (m,) and v (m,) are float32; all contiguous, on one device.
-    ``fused_scaling_iteration.launches`` counts kernel launches.
+    Launches are counted under ``"fused_scaling_iteration"`` in
+    :mod:`rio_tpu_torch.kernels.launch`.
     """
     _check_iteration_args(K, a, b, v)
-    if K.device.type == "cpu":
+    if impl_for(K) == "eager":
         return fused_scaling_iteration_ref(K, a, b, v)
-    if K.device.type != "cuda":
-        raise ValueError(f"no kernel for device {K.device}")
     n, m = K.shape
-    dtype = _K_DTYPES[K.dtype]
-    lib = _kernel_lib()
-    with torch.cuda.device(K.device):
-        parts = ctypes.c_int(0)
-        rc = lib.scaling_iteration_parts(dtype, K.data_ptr(), n, m, ctypes.byref(parts))
-        if rc:
-            raise RuntimeError(f"scaling_iteration_parts failed: CUDA error {rc}")
-        u = torch.empty(n, dtype=torch.float32, device=K.device)
-        v_new = torch.empty(m, dtype=torch.float32, device=K.device)
-        workspace = torch.empty((parts.value, m), dtype=torch.float32, device=K.device)
-        stream = torch.cuda.current_stream(K.device).cuda_stream
-        rc = lib.scaling_iteration_launch(
-            dtype, K.data_ptr(), a.data_ptr(), b.data_ptr(), v.data_ptr(),
-            u.data_ptr(), v_new.data_ptr(), workspace.data_ptr(), parts.value,
-            n, m, stream,
-        )
-    if rc:
-        raise RuntimeError(f"scaling iteration kernel failed to launch: CUDA error {rc}")
-    fused_scaling_iteration.launches += 1
+    dtype = K_DTYPES[K.dtype]
+    n_parts = parts("fused_scaling_iteration", K, dtype, K.data_ptr(), n, m)
+    u = torch.empty(n, dtype=torch.float32, device=K.device)
+    v_new = torch.empty(m, dtype=torch.float32, device=K.device)
+    workspace = torch.empty((n_parts, m), dtype=torch.float32, device=K.device)
+    launch(
+        "fused_scaling_iteration", K, dtype, K.data_ptr(), a.data_ptr(), b.data_ptr(), v.data_ptr(),
+        u.data_ptr(), v_new.data_ptr(), workspace.data_ptr(), n_parts, n, m, rows=n,
+    )
     return u, v_new
-
-
-fused_scaling_iteration.launches = 0
 
 
 def fused_scaling_core(
@@ -293,8 +251,7 @@ def fused_scaling_core(
     themselves, so K is neither padded nor copied; the returned ``K`` is
     the (n, m) kernel matrix the rounding pass reuses.
     """
-    on_card = cost.device.type == "cuda"
-    with span("scaling.k_build", impl="kernel" if on_card else "eager"):
+    with span("scaling.k_build", impl=impl_for(cost)):
         a, b = normalize_marginals(row_mass, col_capacity)
         K, shift = kbuild(cost.float().contiguous(), eps=eps, kernel_dtype=kernel_dtype)
     with span("scaling.iterations"):

@@ -54,6 +54,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..kernels.launch import impl_for
 from ..ops.coarse_score import coarse_scores
 from ..ops.prng import sqrt_rn
 from ..ops.scaling import scaling_sinkhorn
@@ -136,7 +137,7 @@ def hierarchical_assign(
         # Coarse affinity = the object's best LIVE member in each group (a mean
         # embedding would dilute a single warm node by 1/S).
         group_cap = cap.reshape(n_groups, s).sum(dim=1)  # (G,)
-        with span("hier.coarse_score", impl="kernel" if dev.type == "cuda" else "eager"):
+        with span("hier.coarse_score", impl=impl_for(obj_feat)):
             coarse_aff = coarse_scores(
                 obj_feat.contiguous(), node_feat.contiguous(), cap > 0, n_groups
             )  # (N, G)

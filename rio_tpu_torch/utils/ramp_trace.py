@@ -6,8 +6,8 @@ Runs ``rio_tpu_torch.bench.autoscale_stage(ramp=RAMP, **IDLE)`` ``--trials`` tim
 in this process and prints one JSON line a trial: the stage's result (or the
 error it raised), the ramp's seconds from its start to each provision it began
 and to each decision its supervisor journaled (``scale_out``, ``scale_in``,
-``drain_requested`` or ``drain_request_failed``, ``retired``), and both kernels'
-launch counts over the trial (0: the runtime reaches neither). The marks show
+``drain_requested`` or ``drain_request_failed``, ``retired``), and the hand kernels'
+launch counts over the trial (0: the runtime reaches none of them). The marks show
 which wait a slow ramp spent its time in: the scale-out, which comes once one
 node serves over the policy's 600 requests/s, or the scale-in's drain.
 """
@@ -25,8 +25,7 @@ def run(idle: dict, ramp: dict) -> dict:
     """One ``autoscale_stage`` with its marks and launch counts."""
     from .. import autoscale, bench
     from ..autoscale import provision
-    from ..ops import scaling
-    from ..ops.pallas_sinkhorn import fused_iteration
+    from ..kernels import launch
     from . import autoscale_live
 
     marks: list[list] = []
@@ -47,8 +46,7 @@ def run(idle: dict, ramp: dict) -> dict:
         marks.append(["provision", time.monotonic() - start])
         return await provision_node(self)
 
-    scaling.fused_scaling_iteration.launches = 0
-    fused_iteration.launches = 0
+    launch.reset_launches()
     autoscale_live.measure_autoscale_ramp = timed_ramp
     autoscale.AutoscaleRuntime._journal = timed_journal
     provision.SubprocessProvisioner.provision = timed_provision
@@ -62,8 +60,7 @@ def run(idle: dict, ramp: dict) -> dict:
         autoscale.AutoscaleRuntime._journal = journal
         provision.SubprocessProvisioner.provision = provision_node
     out["marks"] = marks
-    out["launches"] = {"fused_scaling_iteration": scaling.fused_scaling_iteration.launches,
-                       "fused_iteration": fused_iteration.launches}
+    out["launches"] = launch.launches()
     return out
 
 

@@ -14,6 +14,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from rio_tpu_torch import tracing  # noqa: E402
+from rio_tpu_torch.kernels.launch import launches  # noqa: E402
 from rio_tpu_torch.ops import coarse_score as cs  # noqa: E402
 from rio_tpu_torch.parallel import hierarchical as H  # noqa: E402
 
@@ -113,14 +114,6 @@ def test_the_wrapper_rejects_what_the_kernel_does_not_take(case):
         cs.coarse_scores(obj, node, live, groups)
 
 
-def test_the_wrapper_on_the_cpu_runs_the_twin_and_counts_no_launch():
-    obj, node, live = _inputs(N_RAGGED, 16, 32, 8, dead=(3, 40))
-    before = cs.coarse_scores.launches
-    got = cs.coarse_scores(obj, node, live, 32)
-    assert cs.coarse_scores.launches == before
-    assert _same(got, cs.coarse_scores_ref(obj, node, live, 32))
-
-
 # --- the twin against the inline loop ------------------------------------------
 
 
@@ -207,10 +200,10 @@ def test_the_coarse_score_span_nests_in_the_coarse_stage_and_reads_eager():
 def test_the_kernel_equals_the_twin_at_the_cells_shape(card):
     n, d, groups, s = 655_360, 16, 32, 32
     obj, node, live = _inputs(n, d, groups, s, seed=22, device=card)
-    before = cs.coarse_scores.launches
+    before = launches()["coarse_scores"]
     got = cs.coarse_scores(obj, node, live, groups)
     torch.cuda.synchronize()
-    assert cs.coarse_scores.launches == before + 1
+    assert launches()["coarse_scores"] == before + 1
     want = cs.coarse_scores_ref(obj, node, live, groups)
     assert int((got != want).sum()) == 0  # bit for bit: the same FMA chain as the GEMM's
 
@@ -226,10 +219,10 @@ RAGGED_GROUPS = [(g, s) for g in (1, 3, 32, 128) for s in (1, 8, 32)] + [(1, 110
 def test_the_kernel_on_ragged_shapes_with_dead_nodes(card, groups, s, d):
     dead = [j for j in range(groups * s) if j % 7 == 3] + list(range(s, 2 * s) if groups > 1 else [])
     obj, node, live = _inputs(N_RAGGED, d, groups, s, seed=groups + s + d, dead=dead, device=card)
-    before = cs.coarse_scores.launches
+    before = launches()["coarse_scores"]
     got = cs.coarse_scores(obj, node, live, groups)
     torch.cuda.synchronize()
-    assert cs.coarse_scores.launches == before + 1
+    assert launches()["coarse_scores"] == before + 1
     assert _near_float64(got, obj, node, live, groups)
     assert _near_float64(cs.coarse_scores_ref(obj, node, live, groups), obj, node, live, groups)
 
@@ -260,10 +253,10 @@ def test_a_card_solve_launches_the_kernel_once_a_chunk(card):
     seen = []
     tracing.add_sink(seen.append)
     try:
-        before = cs.coarse_scores.launches
+        before = launches()["coarse_scores"]
         res = H.chunked_hierarchical_assign(obj, node, cap, alive, n_groups=32, n_chunks=4)
         torch.cuda.synchronize()
-        assert cs.coarse_scores.launches == before + 4
+        assert launches()["coarse_scores"] == before + 4
     finally:
         tracing.clear_sinks()
     assert int(res.overflow) == 0

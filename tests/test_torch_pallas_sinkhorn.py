@@ -78,16 +78,6 @@ def test_fused_iteration_ref_matches_pallas_interpret(jax_one_step):
     assert np.isneginf(f.numpy()[-3:]).all() and np.isneginf(g_new.numpy()[:2]).all()
 
 
-def test_fused_iteration_on_cpu_runs_the_twin_without_a_launch():
-    inputs = [torch.from_numpy(x) for x in _one_step_inputs()]
-    before = tps.fused_iteration.launches
-    got = tps.fused_iteration(*inputs, 0.07)
-    assert tps.fused_iteration.launches == before
-    want = tps.fused_iteration_ref(*inputs, 0.07)
-    for x, y in zip(got, want):
-        torch.testing.assert_close(x, y, rtol=0, atol=0)
-
-
 @pytest.mark.parametrize("n,m,block", [(64, 128, 8), (96, 130, 32), (40, 100, 16)])
 def test_pallas_sinkhorn_matches_jax_pallas_sinkhorn(n, m, block):
     cost, mass, cap = _problem(0, n, m)

@@ -14,6 +14,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from rio_tpu_torch import entry, tracing  # noqa: E402
+from rio_tpu_torch.kernels.launch import launches  # noqa: E402
 from rio_tpu_torch.ops import cdf_round as cr  # noqa: E402
 from rio_tpu_torch.ops import scaling as S  # noqa: E402
 from rio_tpu_torch.ops.sinkhorn import (  # noqa: E402
@@ -98,17 +99,6 @@ def test_the_wrapper_rejects_what_the_kernel_does_not_take(case):
         cr.cdf_round(K, u, v, a, q)
 
 
-def test_the_wrapper_on_the_cpu_runs_the_twin_and_counts_no_launch():
-    K, u, v, a = _state(64, 40)
-    q = cr.chunk_quantiles(u)
-    before = cr.cdf_round.launches
-    got = cr.cdf_round(K, u, v, a, q)
-    want = cr.cdf_round_ref(K, u, v, a, q)
-    assert cr.cdf_round.launches == before
-    for x, y in zip(got, want):
-        assert torch.equal(x, y)
-
-
 # --- the twin and the batched quantiles against the eager chain --------------
 
 
@@ -180,10 +170,10 @@ def test_the_round_span_reads_eager_on_the_cpu():
 def test_the_kernel_matches_its_twin_on_ragged_shapes(card, n, m, dtype):
     K, u, v, a = _state(n, m, seed=n + m, dtype=dtype, device=card)
     q = cr.chunk_quantiles(u)
-    before = cr.cdf_round.launches
+    before = launches()["cdf_round"]
     idx, res = cr.cdf_round(K, u, v, a, q)
     torch.cuda.synchronize()
-    assert cr.cdf_round.launches == before + 1
+    assert launches()["cdf_round"] == before + 1
     idx_p, res_p = cr.cdf_round_ref(K, u, v, a, q)
     assert int(idx.min()) >= 0 and int(idx.max()) < m
     assert float((idx == idx_p).float().mean()) >= 0.999
@@ -209,20 +199,21 @@ def test_a_card_step_launches_the_kernel_once_and_no_eager_rounding(card, monkey
     def refuse(*args, **kwargs):
         raise AssertionError("the eager rounding ran on the card")
 
-    monkeypatch.setattr(entry, "round_from_scaling", refuse)
+    monkeypatch.setattr(cr, "cdf_round_ref", refuse)
     monkeypatch.setattr(entry, "row_marginal_err", refuse)
     cost, mass, cap = entry.make_problem(65536, 256, seed=4, device=card)
     seen = []
     tracing.add_sink(seen.append)
     try:
         for _ in range(2):
-            before, iters = cr.cdf_round.launches, S.fused_scaling_iteration.launches
+            before = launches()
             assignment, _, err = entry.placement_step(
                 cost, mass, cap, n_iters=10, chunk=16384, device=card
             )
             torch.cuda.synchronize()
-            assert cr.cdf_round.launches == before + 1
-            assert S.fused_scaling_iteration.launches == iters + 10
+            after = launches()
+            assert after["cdf_round"] == before["cdf_round"] + 1
+            assert after["fused_scaling_iteration"] == before["fused_scaling_iteration"] + 10
     finally:
         tracing.clear_sinks()
     assert [s.attrs for s in seen if s.name == "placement.round"] == [{"impl": "kernel"}] * 2

@@ -84,12 +84,18 @@ Phases, each printing one JSON line:
      and its features lie within 1e-6 of the CPU's;
    - ``hier_assign``: ``chunked_hierarchical_assign_timed`` on seeded features with 31
      nodes dead: no overflow, no row on a dead node, live loads within 10% of fair, one
-     coarse-score launch a chunk; the untimed form gives the same result, each chunk's
-     ``hier.coarse_score`` span reading ``impl="kernel"``; chunk 0 again on the CPU gives
+     coarse-score launch a chunk and one potential-rounding launch for each of its roundings
+     of at most 32 columns (the fine stage's 8 members; the coarse stage's 128 groups keep
+     the eager twin); the untimed form gives the same result, each chunk's
+     ``hier.coarse_score`` span reading ``impl="kernel"`` and its ``hier.round`` spans
+     ``"eager"`` and ``"kernel"``; chunk 0 again on the CPU gives
      the same node counts and >= 99% of rows on the same node; then the coarse-score kernel
      alone at the benchmark cell's chunk (655,360 x 16 objects, 16 x 1,024 nodes, 32
      groups) against its twin on the card (elements that differ, max |d|), its median ms
-     beside the 0.32 ms bound of its FMAs and the twin's ms;
+     beside the 0.32 ms bound of its FMAs and the twin's ms; and the potential-rounding
+     kernel alone on the two roundings of a solve of that chunk (655,360 x 32 and
+     32 x 25,600 x 32), every node live and the 31 dead off: rows that differ from its
+     twin on the card (none may), its median ms beside its bytes bound and the twin's ms;
    - ``hier_directory``: ``TorchObjectPlacement(affinity_tracker=AffinityTracker())``
      (``auto`` resolves to ``hierarchical``) at 1,048,576 objects: ``assign_batch``, a
      full rebalance in 2 chunks, 3:1 home:secondary traffic on the objects of 30 nodes
@@ -250,7 +256,8 @@ Phases, each printing one JSON line:
    - ``bench_delta``: ``delta_churn_rate`` at 1,048,576 objects x 64 nodes: no undisplaced
      move, cost ratio <= 1 + 1e-6, the delta moved exactly the displaced;
    - ``bench_hier``: ``hier_rate``, BASELINE row 5 in 16 chunks of 655,360 rows: no
-     overflow, loads within 10% of fair, none of the flat kernels, one coarse-score launch a chunk;
+     overflow, loads within 10% of fair, none of the flat kernels, one coarse-score launch
+     and two potential-rounding launches a chunk;
    - ``bench_headline``: the reference's last line over these results and the live
      group's route hops (so it reads "measured p99 hops").
 21. ``profile``: ``torch.profiler`` (CPU and CUDA activities) over a short window of the
@@ -318,11 +325,12 @@ Phases, each printing one JSON line:
      ``ru_maxrss``, which includes the peak of this process, and the child's
      ``VmRSS`` at its end).
 
-Launch counts (``rio_tpu_torch.kernels.launch.launches``) name five hand kernels: the flat
+Launch counts (``rio_tpu_torch.kernels.launch.launches``) name six hand kernels: the flat
 step's four (``fused_scaling_iteration``, ``fused_iteration``, ``cdf_round``, ``kbuild``),
-which a phase that says 0 holds at 0, and ``coarse_scores``, which launches once in every
+which a phase that says 0 holds at 0; ``coarse_scores``, which launches once in every
 ``hierarchical_assign`` call on the card (the hierarchical, tracker, mesh and routed at-scale
-paths) and nowhere else.
+paths) and nowhere else; and ``potential_round``, which launches twice in every such call
+and in the directory's roundings from potentials of at most 32 nodes.
 
 Then the ``kernels`` line and, last, ``{"ok": true, "device": {...}}``. Any failed
 check raises, so the script exits non-zero and prints no result. Without a CUDA
@@ -375,6 +383,9 @@ TOL_HIER_FEATURES = 1e-6  # the card's hashed features against the CPU path's
 # The coarse-score kernel against its twin (cuBLAS's FFMA GEMM, masked_fill, amax) on the
 # card: the same FMA chain in the same order gives the same bits, so no element may differ.
 COARSE_MAX_DIFFER = 0
+# The potential-rounding kernel against its twin (the eager logit, softmax, cumsum and count)
+# on the card: each step in PyTorch's own order, so no row may differ.
+POTENTIAL_ROUND_MAX_DIFFER = 0
 HIER_LOAD_SLACK = 0.10  # live loads within 10% of fair (tests/test_hierarchical.py:226)
 HIER_ROW_AGREEMENT = 0.99  # one chunk on the card against the same chunk on the CPU
 # The affinity group: 1,048,576 objects on 128 hosts x 8 workers (one IP, eight
@@ -883,6 +894,49 @@ def coarse_kernel_fields(obj, node, alive) -> dict:
     return fields
 
 
+def potential_round_fields(obj, node, alive) -> dict:
+    """The potential-rounding kernel alone on both roundings of one two-level solve of the
+    benchmark cell's chunk (BENCH_HIER_CHUNK rows of ``obj``, BENCH_HIER_GROUPS groups), every
+    node live and ``alive``'s dead nodes off: rows that differ from the twin on the card, and
+    at each stage its median ms against the bound of its bytes and the twin's ms."""
+    import torch
+
+    from rio_tpu_torch.ops import potential_round as PR
+    from rio_tpu_torch.parallel import hierarchical as H
+
+    sinkhorn_ops = sys.modules["rio_tpu_torch.ops.sinkhorn"]
+    m = node.shape[1]
+    fields: dict = {}
+    for name, live in (("all_live", torch.ones(m, device=node.device)), ("dead_off", alive)):
+        calls = []
+
+        def spy(*args):
+            calls.append(args)
+            return PR.potential_round(*args)
+
+        sinkhorn_ops.potential_round = spy
+        try:
+            H.hierarchical_assign(obj[:BENCH_HIER_CHUNK], node, torch.ones(m, device=node.device),
+                                  live, n_groups=BENCH_HIER_GROUPS)
+        finally:
+            sinkhorn_ops.potential_round = PR.potential_round
+        check(len(calls) == 2, f"a solve made {len(calls)} roundings, want 2")
+        for stage, args in zip(("coarse", "fine"), calls):
+            got, want = PR.potential_round(*args), PR.potential_round_ref(*args)
+            differ = int((got != want).sum())
+            check(differ <= POTENTIAL_ROUND_MAX_DIFFER,
+                  f"potential-rounding kernel ({name}, {stage}): {differ} rows differ")
+            entry = fields.setdefault(stage, {"shape": list(args[0].shape)})
+            entry[f"rows_differ_{name}"] = differ
+            if name == "all_live":
+                cost = args[0]
+                bound_ms = (cost.numel() * 4 + 3 * 4 * cost[..., 0].numel()) / HBM_BYTES_PER_S * 1e3
+                ms = cuda_median_ms(lambda: PR.potential_round(*args), reps=20, batch=10)
+                plain_ms = cuda_median_ms(lambda: PR.potential_round_ref(*args), reps=5)
+                entry.update(ms=ms, bound_ms=bound_ms, bound_share=bound_ms / ms, plain_ms=plain_ms)
+    return fields
+
+
 async def hier_phases(dev, card: dict, keep: dict) -> dict:
     """The ``hier`` group (phase 13): returns the times it printed and puts
     ``hier_assign``'s assignment (numpy) into ``keep``."""
@@ -893,6 +947,7 @@ async def hier_phases(dev, card: dict, keep: dict) -> dict:
     from rio_tpu_torch.object_placement import AffinityTracker, TorchObjectPlacement
     from rio_tpu_torch.object_placement import torch_placement as tp
     from rio_tpu_torch.ops import prng
+    from rio_tpu_torch.ops.potential_round import MAX_KERNEL_COLS
     from rio_tpu_torch.parallel.hierarchical import (
         chunked_hierarchical_assign,
         chunked_hierarchical_assign_timed,
@@ -967,16 +1022,24 @@ async def hier_phases(dev, card: dict, keep: dict) -> dict:
     peak = torch.cuda.max_memory_allocated()
     check(launches["coarse_scores"] == n_chunks,
           f"{launches['coarse_scores']} coarse-score launches for {n_chunks} chunks")
+    # Each chunk rounds over its groups, then over each group's members; a rounding of more
+    # than MAX_KERNEL_COLS columns (here the coarse stage's 128 groups) keeps the eager twin.
+    round_want = ["kernel" if cols <= MAX_KERNEL_COLS else "eager"
+                  for cols in (n_groups, DIR_NODES // n_groups)] * n_chunks
+    check(launches["potential_round"] == round_want.count("kernel"),
+          f"{launches['potential_round']} potential-rounding launches for {n_chunks} chunks")
     check(int(res.overflow) == 0, f"overflow {int(res.overflow)}")
     spread = live_spread(np.bincount(assignment, minlength=DIR_NODES), set(dead), n_pad,
                          "hierarchical assign")
-    coarse_impl = []  # each chunk's ``hier.coarse_score`` span: "kernel", not "eager"
+    coarse_impl, round_impl = [], []  # each chunk's spans: "kernel", not "eager"
     tracing.add_sink(lambda sp: sp.name == "hier.coarse_score" and coarse_impl.append(sp.attrs["impl"]))
+    tracing.add_sink(lambda sp: sp.name == "hier.round" and round_impl.append(sp.attrs["impl"]))
     try:
         untimed = chunked_hierarchical_assign(obj, node, cap, alive, n_chunks=n_chunks, **kw)
     finally:
         tracing.clear_sinks()
     check(coarse_impl == ["kernel"] * n_chunks, f"coarse-score spans {coarse_impl}")
+    check(round_impl == round_want, f"rounding spans {round_impl}")
     check(torch.equal(untimed.assignment, res.assignment) and torch.equal(untimed.group, res.group)
           and int(untimed.overflow) == int(res.overflow), "untimed form differs from the timed form")
     # Chunk 0 again on the CPU, against its own share of the capacity.
@@ -990,13 +1053,15 @@ async def hier_phases(dev, card: dict, keep: dict) -> dict:
     check(agree >= HIER_ROW_AGREEMENT, f"chunk 0 rows agree {agree} with the CPU")
     keep["hier_assign"] = assignment  # mesh_hier's reference
     coarse_kernel = coarse_kernel_fields(obj, node, alive)
+    round_kernel = potential_round_fields(obj, node, alive)
     out.update(assign_ms=assign_ms, chunk_ms_median=statistics.median(chunk_ms),
                chunk_ms_first=chunk_ms[0], chunk_ms_max=max(chunk_ms))
     emit("hier_assign", **card, n=HIER_OBJ, rows=n_pad, m=DIR_NODES, dead=HIER_DEAD,
          groups=n_groups, chunks=n_chunks, bucket=bucket, n_iters=N_ITERS, wall_ms=assign_ms,
          chunk_ms=chunk_ms, overflow=int(res.overflow), live_loads=spread,
          coarse_residual=float(res.coarse_err), cpu_chunk_ms=cpu_ms, cpu_row_agreement=agree,
-         coarse_impl=coarse_impl, coarse_kernel=coarse_kernel, peak_bytes=peak, launches=launches)
+         coarse_impl=coarse_impl, coarse_kernel=coarse_kernel, round_impl=round_impl,
+         round_kernel=round_kernel, peak_bytes=peak, launches=launches)
     del obj, node, res, untimed, cpu, assignment
 
     # -- hier_directory: AffinityTracker + auto -> hierarchical ------------------
@@ -2182,7 +2247,7 @@ def bench_phases(dev, card: dict, live: dict | None = None) -> int:
     )
     # One K build a solve; the rounding kernel launches once a timed step.
     want = {"fused_scaling_iteration": N_ITERS * solve["solves"], "fused_iteration": 0,
-            "kbuild": solve["solves"], "coarse_scores": 0}
+            "kbuild": solve["solves"], "coarse_scores": 0, "potential_round": 0}
     check({k: launches[k] for k in want} == want and launches["cdf_round"] > 0,
           f"solve_rate launches {launches}, want {want} and the rounding kernel")
     kernel_launches = launches["fused_scaling_iteration"]
@@ -2193,7 +2258,7 @@ def bench_phases(dev, card: dict, live: dict | None = None) -> int:
         "row 3", kernel_ok=True,
     )
     want3 = {"fused_scaling_iteration": BENCH_ROW3_ITERS * row3["solves"], "fused_iteration": 0,
-             "kbuild": row3["solves"], "coarse_scores": 0}
+             "kbuild": row3["solves"], "coarse_scores": 0, "potential_round": 0}
     check({k: launches3[k] for k in want3} == want3 and launches3["cdf_round"] > 0,
           f"row-3 launches {launches3}, want {want3} and the rounding kernel")
     kernel_launches += launches3["fused_scaling_iteration"]
@@ -2256,6 +2321,8 @@ def bench_phases(dev, card: dict, live: dict | None = None) -> int:
     check(hier["n_chunks"] == BENCH_HIER_OBJ // BENCH_HIER_CHUNK, f"hier_rate chunks {hier['n_chunks']}")
     check(launches["coarse_scores"] > 0 and launches["coarse_scores"] % hier["n_chunks"] == 0,
           f"hier_rate made {launches['coarse_scores']} coarse-score launches, not one a chunk")
+    check(launches["potential_round"] == 2 * launches["coarse_scores"],
+          f"hier_rate made {launches['potential_round']} potential-rounding launches, not two a chunk")
     check((1 - HIER_LOAD_SLACK) * fair <= hier["min_load"] and hier["max_load"] <= (1 + HIER_LOAD_SLACK) * fair,
           f"hier_rate loads {hier['min_load']}..{hier['max_load']}, fair {fair}")
     detail["baseline_row5_hier"] = hier
@@ -2543,6 +2610,7 @@ def main() -> int:
     kbuild_launches = counts["kbuild"]
     peak = torch.cuda.max_memory_allocated()
     check(counts["coarse_scores"] == 0, "the main path launched the coarse-score kernel")
+    check(counts["potential_round"] == 0, "the main path launched the potential-rounding kernel")
     check(launches == N_ITERS, f"kernel launched {launches} times, want {N_ITERS}")
     check(round_launches == 1 and impl["placement.round"] == ["kernel"],
           f"the rounding kernel launched {round_launches} times (want 1), rounding spans {impl}")
@@ -2558,7 +2626,8 @@ def main() -> int:
     check(err == err and err < 1e-2, f"row-marginal error {err}")
     emit("main_path", n=N_OBJ, m=N_NODES, chunk=CHUNK, n_iters=N_ITERS, launches=launches,
          round_launches=round_launches, round_impl=impl["placement.round"],
-         kbuild_launches=kbuild_launches, k_build_impl=impl["scaling.k_build"], quota=quota,
+         kbuild_launches=kbuild_launches, k_build_impl=impl["scaling.k_build"],
+         potential_round_launches=counts["potential_round"], quota=quota,
          mean_cost=mean_cost, row_marginal_err=err, first_step_s=step_s, peak_bytes=peak)
     del assignment, loads
 
@@ -2651,6 +2720,7 @@ def main() -> int:
     check(counts["cdf_round"] == 0, "the log-domain path launched the rounding kernel")
     check(counts["kbuild"] == 0, "the log-domain path launched the K-build kernel")
     check(counts["coarse_scores"] == 0, "the log-domain path launched the coarse-score kernel")
+    check(counts["potential_round"] == 0, "the log-domain path launched the potential-rounding kernel")
     check(ld_assignment.shape == (N_OBJ,), "log-domain assignment shape")
     loads = torch.bincount(ld_assignment.long(), minlength=N_NODES)
     check(loads.shape == (N_NODES,) and bool((loads == quota).all()),

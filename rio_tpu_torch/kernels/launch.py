@@ -73,6 +73,8 @@ KERNELS = {k.name: k for k in (
     Kernel("kbuild", "kbuild", "K-build kernel", launch=(_I, _P, _P, _P, _L, _L, _F, _P)),
     Kernel("coarse_scores", "coarse_score", "coarse-score kernel",
            launch=(_P, _P, _P, _P, _L, _L, _L, _L, _P)),
+    Kernel("potential_round", "potential_round", "potential-rounding kernel",
+           launch=(_P, _P, _P, _P, _P, _L, _L, _L, _F, _P)),
 )}
 
 _launches = dict.fromkeys(KERNELS, 0)

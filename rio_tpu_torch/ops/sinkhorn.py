@@ -27,6 +27,7 @@ from typing import NamedTuple
 import torch
 
 from .assignment import rank_within_group
+from .potential_round import potential_round
 
 
 class SinkhornResult(NamedTuple):
@@ -131,19 +132,14 @@ def plan_rounded_assign(
     ``(rank + 0.5) / n_real`` among real rows, so aggregate node loads
     match the plan's column marginals while identical rows spread
     contiguously. Padding rows (``f = -inf``) fall back to the uniform
-    distribution over live columns.
+    distribution over live columns. The rounding itself is
+    :func:`~rio_tpu_torch.ops.potential_round.potential_round`: one kernel
+    launch on a CUDA cost of at most 32 columns, the eager chain else.
     """
-    cost = cost.float()
-    is_real = torch.isfinite(f)
-    logit = (f[..., :, None] + g[..., None, :] - cost) / eps
-    alive_cols = torch.isfinite(g)
-    padding_logit = torch.where(alive_cols, 0.0, _NEG_INF)
-    logit = torch.where(is_real[..., :, None], logit, padding_logit[..., None, :])
-    p = torch.softmax(logit, dim=-1)
-    cum = torch.cumsum(p, dim=-1)
-    q = _quantiles(is_real)
-    idx = (cum < q[..., None]).sum(dim=-1, dtype=torch.int32)
-    return idx.clamp(0, cost.shape[-1] - 1)
+    q = _quantiles(torch.isfinite(f))
+    return potential_round(
+        cost.float().contiguous(), f.float().contiguous(), g.float().contiguous(), q, eps
+    )
 
 
 def plan_rounded_assign_from_scaling(

@@ -22,7 +22,10 @@ Each stage is a span of :mod:`rio_tpu_torch.tracing`: ``hier.coarse``,
 ``hier.coarse``, ``hier.coarse_score`` holds the scoring of the groups
 (:func:`~rio_tpu_torch.ops.coarse_score.coarse_scores`; attribute ``impl``:
 ``kernel`` where the hand-written kernel ran, on CUDA tensors, ``eager`` on
-the CPU).
+the CPU). Inside ``hier.coarse`` and ``hier.fine``, ``hier.round`` holds the
+rounding from the potentials (:func:`~rio_tpu_torch.ops.sinkhorn.plan_rounded_assign`
+over :func:`~rio_tpu_torch.ops.potential_round.potential_round`; ``impl``:
+``kernel`` on CUDA tensors of at most 32 groups or members, ``eager`` else).
 
 :func:`chunked_hierarchical_assign` solves the object axis in chunks, each
 against ``1/n_chunks`` of every node's capacity. The JAX form runs the
@@ -56,6 +59,7 @@ import torch
 
 from ..kernels.launch import impl_for
 from ..ops.coarse_score import coarse_scores
+from ..ops.potential_round import potential_round_impl
 from ..ops.prng import sqrt_rn
 from ..ops.scaling import scaling_sinkhorn
 from ..ops.sinkhorn import exact_quota_repair, plan_rounded_assign, route_sentinel_spill
@@ -152,7 +156,8 @@ def hierarchical_assign(
         res_c = scaling_sinkhorn(
             coarse_cost, mass, group_cap, eps=eps, n_iters=coarse_iters, g_init=coarse_g_init,
         )
-        group = plan_rounded_assign(coarse_cost, res_c.f, res_c.g, eps)  # (N,)
+        with span("hier.round", impl=potential_round_impl(coarse_cost)):
+            group = plan_rounded_assign(coarse_cost, res_c.f, res_c.g, eps)  # (N,)
         # Exact group quotas, so a bucket sized >= the largest quota cannot
         # overflow.
         group = exact_quota_repair(group, group_cap / group_cap.sum().clamp_min(1e-30) * n)
@@ -187,7 +192,8 @@ def hierarchical_assign(
         real = fine_mass > 0
         cap_g = cap.reshape(n_groups, s)  # (G, S)
         res_f = scaling_sinkhorn(fine_cost, fine_mass, cap_g, eps=eps, n_iters=fine_iters)
-        local = plan_rounded_assign(fine_cost, res_f.f, res_f.g, eps)  # (G, B)
+        with span("hier.round", impl=potential_round_impl(fine_cost)):
+            local = plan_rounded_assign(fine_cost, res_f.f, res_f.g, eps)  # (G, B)
         # Exact per-node quotas within each group: padding rows go to a
         # sentinel column s sized to their count, so real rows land exactly on
         # capacity shares of the group's real population.

@@ -22,6 +22,7 @@ from rio_tpu_torch.kernels import launch as L  # noqa: E402
 from rio_tpu_torch.ops import cdf_round as cr  # noqa: E402
 from rio_tpu_torch.ops import coarse_score as cs  # noqa: E402
 from rio_tpu_torch.ops import kbuild as kb  # noqa: E402
+from rio_tpu_torch.ops import potential_round as pr  # noqa: E402
 from rio_tpu_torch.ops import scaling as ts  # noqa: E402
 
 # The package re-exports the function ``pallas_sinkhorn`` under the module's name.
@@ -67,6 +68,18 @@ def _calls(name, n, m, device="cpu"):
             lambda c: kb.kbuild_ref(c, eps=0.05, kernel_dtype=torch.bfloat16),
             (cost,),
         )
+    if name == "potential_round":
+        m = min(m, pr.MAX_KERNEL_COLS - 3)  # the kernel takes rows of at most 32 columns
+        f = rng.normal(size=n) * 0.1
+        f[::7] = -np.inf  # padding rows
+        g = rng.normal(size=m) * 0.1
+        g[::11] = -np.inf  # dead columns
+        q = (np.arange(n) + 0.5) / n
+        return (
+            lambda *a: pr.potential_round(*a, 0.05),
+            lambda *a: pr.potential_round_ref(*a, 0.05),
+            (t(rng.random((n, m))), t(f), t(g), t(q)),
+        )
     groups = 4
     obj = t(rng.standard_normal((n, 16)))
     node = t(rng.standard_normal((16, groups * 8)) * 0.2)
@@ -94,7 +107,7 @@ def test_the_table_names_every_source_and_the_build_builds_the_table():
     stems = [k.stem for k in L.KERNELS.values()]
     assert sorted(stems) == sorted(p.stem for p in CSRC.glob("*.cu"))
     assert list(build.SOURCES) == stems
-    assert len(set(stems)) == len(stems) == 5
+    assert len(set(stems)) == len(stems) == 6
 
 
 @pytest.mark.parametrize("name", list(L.KERNELS))
@@ -139,7 +152,8 @@ def test_the_device_rule_reads_eager_on_the_cpu_and_refuses_other_devices():
 
 def test_the_registry_counts_every_kernel_by_its_wrappers_name():
     assert list(L.launches()) == [
-        "fused_scaling_iteration", "fused_iteration", "cdf_round", "kbuild", "coarse_scores"
+        "fused_scaling_iteration", "fused_iteration", "cdf_round", "kbuild", "coarse_scores",
+        "potential_round",
     ]
     L.reset_launches()
     assert set(L.launches().values()) == {0}
@@ -183,7 +197,9 @@ def test_each_wrapper_on_the_card_launches_once_near_its_twin(card, name):
     assert all(after[k] == before[k] for k in after if k != name)
     for x, y in zip(_outputs(got), _outputs(ref(*args)), strict=True):
         assert x.device == y.device and x.dtype == y.dtype and x.shape == y.shape
-        if x.dtype == torch.int32:  # the rounding's seats: its sums run in another order
+        if name == "potential_round":  # the eager chain's order, bit for bit
+            assert torch.equal(x, y)
+        elif x.dtype == torch.int32:  # the rounding's seats: its sums run in another order
             assert float((x == y).float().mean()) >= 0.999
         else:  # float32 sums in another order, approximate exponentials in the log domain
             x, y = x.float(), y.float()

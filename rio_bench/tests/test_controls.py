@@ -126,22 +126,30 @@ class _FaultyDirectory:
         return moved
 
 
-def _churn(fault, tiny):
+def _churn(fault, config):
     from rio_tpu_torch.object_placement.torch_placement import TorchObjectPlacement
 
-    provider = tiny[0].config("flat-1m-1k")["provider"]
-    return lambda: _FaultyDirectory(TorchObjectPlacement(device="cpu", **provider), fault)
+    return lambda: _FaultyDirectory(TorchObjectPlacement(device="cpu", **config["provider"]), fault)
+
+
+# The broken program of each driver, built from the fault and the cell's configuration.
+FAULTS = {
+    "place_flat": lambda fault, config: _flat(fault),
+    "place_hier": lambda fault, config: _hier(fault),
+    "directory_churn": _churn,
+}
+
+
+def broken_program(registry, cell, fault):
+    """``cell``'s timed path with ``fault``, chosen by the driver its workload file names."""
+    workload = registry.workload(cell)
+    return FAULTS[workload["driver"]](fault, registry.config(workload["config"]))
 
 
 @pytest.mark.parametrize("fault", ["unchanged", "half", "altered"])
 @pytest.mark.parametrize("cell", CELLS)
 def test_a_broken_timed_path_is_not_correct(tiny, cell, fault):
-    program = {
-        "flat-1m-1k.place": lambda: _flat(fault),
-        "hier-10m-1k.place": lambda: _hier(fault),
-        "flat-1m-1k.churn": lambda: _churn(fault, tiny),
-    }[cell]()
-    res = run_tiny(tiny, cell, program=program)
+    res = run_tiny(tiny, cell, program=broken_program(tiny[0], cell, fault))
     assert not res["correct"], res["checks"]
 
 

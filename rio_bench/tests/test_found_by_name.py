@@ -1,13 +1,15 @@
 """The harness finds every configuration, cell, driver and metric by its name."""
 
 import json
+import shutil
 
 import pytest
 
 from rio_bench import harness
 
-from .tiny import REPO, SPEC, run_tiny
-
+from .test_controls import broken_program
+from .test_stages import check_stages
+from .tiny import REPO, SPEC, full_spec, make_tiny, run_tiny
 
 
 @pytest.mark.parametrize("cell", [w["name"] for w in SPEC["workloads"]])
@@ -66,3 +68,74 @@ def test_a_new_cell_is_one_json_file(tiny):
     res = run_tiny((registry, spec), cell, seconds=0.5)
     assert res["correct"], res["checks"]
     assert set(res["metrics"]) == {"setup_s", "placements_per_s"}
+
+
+@pytest.mark.parametrize("kind", ["configs", "workloads"])
+def test_a_name_without_its_cpu_sizes_file_is_refused(tmp_path, kind):
+    spec = json.loads(json.dumps(SPEC))
+    if kind == "configs":
+        spec["configs"].append({"name": "no-such-config"})
+    else:
+        spec["workloads"].append({"name": "no-such-cell", "config": "flat-1m-1k"})
+    missing = "no-such-config.json" if kind == "configs" else "no-such-cell.json"
+    with pytest.raises(FileNotFoundError, match=missing):
+        make_tiny(tmp_path, spec=spec)
+
+
+NEW_CONFIG, NEW_CELL = "flat-1m-512", "flat-1m-512.place"
+
+
+@pytest.fixture
+def new_configuration(tmp_path):
+    """``(registry, spec)`` at CPU sizes of a copy of the benchmark with a configuration and cell added as files.
+
+    ``flat-1m-1k`` at another node count, its cell, their two CPU sizes
+    files and their entries in ``BENCHMARK.json``; no test file is edited.
+    """
+    repo = tmp_path / "repo"
+    bench = repo / "rio_bench"
+    shutil.copytree(REPO / "rio_bench", bench, ignore=shutil.ignore_patterns("__pycache__"))
+    config = json.loads((bench / "configs" / "flat-1m-1k.json").read_text())
+    config.update(name=NEW_CONFIG, nodes=512)
+    (bench / "configs" / f"{NEW_CONFIG}.json").write_text(json.dumps(config))
+    workload = json.loads((bench / "workloads" / "flat-1m-1k.place.json").read_text())
+    workload["config"] = NEW_CONFIG
+    (bench / "workloads" / f"{NEW_CELL}.json").write_text(json.dumps(workload))
+    sizes = bench / "tests" / "cpu_sizes"
+    (sizes / "configs" / f"{NEW_CONFIG}.json").write_text(json.dumps(
+        {"why": "test", "config": {"objects": 2048, "nodes": 16, "solve": {"round_chunk_rows": 512}}}
+    ))
+    (sizes / "workloads" / f"{NEW_CELL}.json").write_text(json.dumps(
+        {"why": "test", "traffic": {"limits": {"seat_mismatch": 0.05, "cost_gap": 0.05}}}
+    ))
+    spec = json.loads((REPO / "BENCHMARK.json").read_text())
+    spec["configs"].append({"name": NEW_CONFIG, "source": config["source"],
+                            "file": f"rio_bench/configs/{NEW_CONFIG}.json", "reduced": [], "why": "test"})
+    spec["workloads"].append(
+        {"name": NEW_CELL, "config": NEW_CONFIG, "traffic": "place-pool4", "chips": 1, "why": "test"}
+    )
+    for m in spec["end_to_end"] + spec["per_layer"]:
+        if "flat-1m-1k.place" in m.get("workloads", ()):
+            m["workloads"].append(NEW_CELL)
+    (repo / "BENCHMARK.json").write_text(json.dumps(spec))
+    return make_tiny(tmp_path / "tiny", source=bench, spec=full_spec(repo))
+
+
+def test_a_new_configuration_takes_its_cpu_sizes_and_runs_correct(new_configuration):
+    registry = new_configuration[0]
+    config = registry.config(NEW_CONFIG)
+    assert (config["objects"], config["nodes"], config["solve"]["round_chunk_rows"]) == (2048, 16, 512)
+    res = run_tiny(new_configuration, NEW_CELL, seconds=0.5)
+    assert res["correct"], res["checks"]
+    assert set(res["metrics"]) == {"setup_s", "placements_per_s"}
+
+
+def test_a_new_configuration_reports_the_stages_of_its_driver(new_configuration):
+    check_stages(new_configuration, NEW_CELL)
+
+
+@pytest.mark.parametrize("fault", ["unchanged", "half", "altered"])
+def test_a_new_configuration_takes_the_faults_of_its_driver(new_configuration, fault):
+    program = broken_program(new_configuration[0], NEW_CELL, fault)
+    res = run_tiny(new_configuration, NEW_CELL, seconds=0.5, program=program)
+    assert not res["correct"], res["checks"]

@@ -5,6 +5,7 @@ import re
 
 import pytest
 
+from . import tiny
 from .tiny import REPO
 
 SPEC = json.loads((REPO / "BENCHMARK.json").read_text())
@@ -71,10 +72,43 @@ def test_cells_and_bounds():
     for m in SPEC["per_layer"]:
         assert m["source"] in ("device_trace", "program_span", "program_counter", "host_clock")
         assert m["moves"] in e2e
+    _each_cell_reports(SPEC)
+
+
+def _each_cell_reports(spec: dict) -> None:
+    """Every cell reports ``setup_s``, another end-to-end metric and a per-layer one that moves it."""
+    cells = {w["name"] for w in spec["workloads"]}
+    e2e = {m["name"]: m for m in spec["end_to_end"]}
     for cell in cells:
         reported = [m for m in e2e.values() if cell in m.get("workloads", cells)]
         assert "setup_s" in {m["name"] for m in reported} and len(reported) >= 2, cell
-        layer = [m for m in SPEC["per_layer"] if cell in m.get("workloads", cells)]
+        layer = [m for m in spec["per_layer"] if cell in m.get("workloads", cells)]
         assert layer, cell
         for m in layer:  # the metric it moves is reported in every cell it lists
             assert cell in e2e[m["moves"]].get("workloads", cells), (m["name"], cell)
+
+
+def test_pending_cells_report_as_a_cell_of_the_benchmark_does():
+    """``pending.json``'s cells, merged into ``BENCHMARK.json``: each entry named once, each cell's metrics whole."""
+    spec = tiny.SPEC
+    for kind in ("configs", "workloads", "end_to_end", "per_layer"):
+        names = [x["name"] for x in spec[kind]]
+        assert len(names) == len(set(names)), kind
+    for m in spec["end_to_end"] + spec["per_layer"]:
+        assert {"unit", "better", "source"} <= set(m), m["name"]
+    assert {w["config"] for w in spec["workloads"]} == {c["name"] for c in spec["configs"]}
+    _each_cell_reports(spec)
+
+
+@pytest.mark.parametrize(
+    ("kind", "name"),
+    [("configs", c["name"]) for c in tiny.SPEC["configs"]]
+    + [("workloads", w["name"]) for w in tiny.SPEC["workloads"]],
+)
+def test_every_config_and_cell_has_its_cpu_sizes_file(kind, name):
+    """Each configuration and cell of ``BENCHMARK.json`` and ``pending.json`` has its CPU sizes."""
+    path = tiny.cpu_sizes_file(REPO / "rio_bench", kind, name)
+    assert path.is_file(), f"no CPU sizes file {path}"
+    sizes = json.loads(path.read_text())
+    field = "config" if kind == "configs" else "traffic"
+    assert set(sizes) == {"why", field} and sizes["why"].strip(), path

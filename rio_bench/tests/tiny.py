@@ -1,4 +1,12 @@
-"""A copy of the benchmark's folder at CPU sizes, and one run of a cell on it."""
+"""A copy of the benchmark's folder at CPU sizes, and one run of a cell on it.
+
+Each configuration and each cell has a file of its own under ``cpu_sizes/``,
+found by its name: ``configs/<config>.json`` changes the configuration's
+sizes (its ``config``), ``workloads/<cell>.json`` the cell's traffic and
+limits (its ``traffic``); each says in ``why`` what it changes and why. A
+cell or configuration without its file is an error, so that none runs at
+its full size on the CPU by omission.
+"""
 
 import json
 import shutil
@@ -12,59 +20,69 @@ from rio_bench import harness
 REPO = Path(__file__).resolve().parents[2]
 
 
-def _full_spec() -> dict:
+def full_spec(repo: Path = REPO) -> dict:
     """``BENCHMARK.json`` with the entries of the cells it does not hold yet (``pending.json``).
 
-    A pending cell is built and checked but not measured: the churn cell,
-    whose host-bound numbers spread too widely between runs for a bound.
+    A pending cell is built and checked but not measured: its host-bound
+    numbers spread too widely between runs for its bound. A pending entry
+    that names a metric ``BENCHMARK.json`` already has adds its cells to
+    that metric's ``workloads``.
     """
-    spec = json.loads((REPO / "BENCHMARK.json").read_text())
-    pending = json.loads((Path(__file__).with_name("pending.json")).read_text())
+    spec = json.loads((repo / "BENCHMARK.json").read_text())
+    pending = json.loads((repo / "rio_bench" / "tests" / "pending.json").read_text())
     for key, entries in pending.items():
-        spec[key] = spec[key] + entries
+        known = {entry["name"]: entry for entry in spec[key]}
+        for entry in entries:
+            if entry["name"] in known:
+                known[entry["name"]]["workloads"] += entry["workloads"]
+            else:
+                spec[key].append(entry)
     return spec
 
 
-SPEC = _full_spec()
-TINY = {
-    "flat-1m-1k": {"objects": 4096, "nodes": 64, "solve": {"round_chunk_rows": 1024}},
-    "hier-10m-1k": {"objects": 65536, "nodes": 64, "solve": {"groups": 4, "chunk_rows": 16384}},
-}
-# The CPU runs the eager scaling loop (u and v cast to bfloat16 before each
-# product) where the card runs the kernel (float32 vectors): looser limits.
-# At 4,096 objects over 64 nodes the collapsed full solve's rounding moves
-# 1-2% of the objects beyond the forced (none at 1,048,576 over 1,024).
-TINY_LIMITS = {
-    "flat-1m-1k.place": {"seat_mismatch": 0.05, "cost_gap": 0.05},
-    "hier-10m-1k.place": {"seat_mismatch": 0.05, "group_mismatch": 0.05, "score_gap": 0.05},
-    "flat-1m-1k.churn": {"full_excess_moves": 0.1},
-}
-TINY_TRAFFIC = {"flat-1m-1k.churn": {"alloc_batch": 64}}
+SPEC = full_spec()
 
 
-def _update(path: Path, change: dict) -> None:
-    data = json.loads(path.read_text())
+def cpu_sizes_file(source: Path, kind: str, name: str) -> Path:
+    """The CPU sizes of configuration (``kind`` ``configs``) or cell (``workloads``) ``name``."""
+    return Path(source) / "tests" / "cpu_sizes" / kind / f"{name}.json"
+
+
+def _merge(data: dict, change: dict, where: str) -> None:
+    """Set each key of ``change`` in ``data``, into nested dicts; every key must already be there."""
     for key, value in change.items():
+        if key not in data:
+            raise KeyError(f"{where}: no key {key!r} to change")
         if isinstance(value, dict):
-            data[key].update(value)
+            _merge(data[key], value, f"{where}.{key}")
         else:
             data[key] = value
+
+
+def _apply(root: Path, source: Path, kind: str, name: str, field: str) -> None:
+    sizes = cpu_sizes_file(source, kind, name)
+    if not sizes.is_file():
+        raise FileNotFoundError(f"no CPU sizes file {sizes} for {name!r}")
+    path = root / kind / f"{name}.json"
+    data = json.loads(path.read_text())
+    target = data if field == "config" else data[field]
+    _merge(target, json.loads(sizes.read_text())[field], str(sizes))
     path.write_text(json.dumps(data))
 
 
-def make_tiny(tmp_path):
-    """``(registry, spec)`` of the benchmark's folder copied at CPU sizes."""
-    root = tmp_path / "rio_bench"
-    shutil.copytree(REPO / "rio_bench", root, ignore=shutil.ignore_patterns("__pycache__", "tests"))
-    for name, change in TINY.items():
-        _update(root / "configs" / f"{name}.json", change)
-    for cell in {*TINY_LIMITS, *TINY_TRAFFIC}:
-        path = root / "workloads" / f"{cell}.json"
-        data = json.loads(path.read_text())
-        data["traffic"]["limits"].update(TINY_LIMITS.get(cell, {}))
-        data["traffic"].update(TINY_TRAFFIC.get(cell, {}))
-        path.write_text(json.dumps(data))
-    return harness.Registry(root), json.loads(json.dumps(SPEC))
+def make_tiny(tmp_path, *, source: Path = REPO / "rio_bench", spec: dict = SPEC):
+    """``(registry, spec)`` of the benchmark's folder ``source`` copied at CPU sizes.
+
+    Every configuration and every cell of ``spec`` takes the file of its
+    name under ``source/tests/cpu_sizes/``.
+    """
+    root = Path(tmp_path) / "rio_bench"
+    shutil.copytree(source, root, ignore=shutil.ignore_patterns("__pycache__", "tests"))
+    for config in spec["configs"]:
+        _apply(root, source, "configs", config["name"], "config")
+    for cell in spec["workloads"]:
+        _apply(root, source, "workloads", cell["name"], "traffic")
+    return harness.Registry(root), json.loads(json.dumps(spec))
 
 
 def run_tiny(tiny, cell, *, seconds=1.5, trace=False, program=None, seed=2**31 + 7):

@@ -1,8 +1,12 @@
 """The controls that take the place of the entry each driver drives: ``correct`` has to come out false.
 
+Each driver's test file, ``rio_bench/tests/drivers/<driver>.py``, names
+its controls (``controls(config)``), found by the driver's name:
+
 * ``place_flat`` and ``place_hier``: ``fp8``, the plain reference with K
   stored in fp8 (e4m3, rows scaled to 448), one precision below the
-  bfloat16 the configuration states;
+  bfloat16 the configuration states (:func:`flat_control`,
+  :func:`hier_control`);
 * ``directory_churn``, whose integer answers state no precision: two plain
   directories (:class:`~rio_bench.reference.directory.PlainDirectory`),
   each breaking one guarantee the configuration states: ``keep_all``
@@ -20,7 +24,7 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from rio_bench.reference import directory, flat, hier
+from rio_bench.reference import flat, hier
 
 FP8 = "float8_e4m3fn"
 
@@ -37,17 +41,3 @@ def hier_control(obj_feat, node_feat, cap, alive, *, n_groups, n_chunks, eps, co
                        coarse_iters=coarse_iters, fine_iters=fine_iters, store=FP8)
     return SimpleNamespace(assignment=torch.from_numpy(seats.astype(np.int32)), overflow=0)
 
-
-def controls_for(driver: str, config: dict) -> dict:
-    """The controls, by name, that take the place of ``driver``'s entry."""
-    if driver == "place_flat":
-        return {"fp8": flat_control}
-    if driver == "place_hier":
-        return {"fp8": hier_control}
-    if driver == "directory_churn":
-        max_delta = config["provider"]["max_delta_solves"]
-        return {
-            "keep_all": lambda: directory.PlainDirectory(keep_all=True, max_delta_solves=max_delta),
-            "reshuffle": lambda: directory.PlainDirectory(reshuffle=True, max_delta_solves=max_delta),
-        }
-    raise KeyError(f"no control for driver {driver!r}")

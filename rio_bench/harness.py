@@ -90,6 +90,10 @@ class Registry:
     def driver(self, name: str):
         return _load(self.root / "drivers" / f"{name}.py", "driver")
 
+    def driver_tests(self, name: str):
+        """What the benchmark's tests know of driver ``name``: its controls, faults and stages; no run reads it."""
+        return _load(self.root / "tests" / "drivers" / f"{name}.py", "driver_tests")
+
     def metric(self, name: str):
         path = self.root / "metrics" / f"{name}.py"
         if not path.is_file() and "." in name:

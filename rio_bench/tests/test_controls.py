@@ -11,16 +11,17 @@ Each fault breaks the timed path underneath a whole run:
 * an answer altered where it is produced: one seat moved to another node.
 
 A cell runs on one card, so none has an exchange between chips to leave out.
+Each driver's controls and broken programs are in its test file,
+``tests/drivers/<driver>.py`` (``controls(config)``, ``broken(fault, config)``),
+found by the driver's name in the benchmark folder under test.
 """
 
 import json
 import time
-from types import SimpleNamespace
 
 import pytest
-import torch
 
-from rio_bench import control, harness
+from rio_bench import harness
 from rio_bench.reference.directory import PlainDirectory
 
 from .tiny import SPEC, run_tiny
@@ -28,17 +29,24 @@ from .tiny import SPEC, run_tiny
 CELLS = [w["name"] for w in SPEC["workloads"]]
 
 
-def _controls(registry, cell) -> dict:
+def _driver_tests(registry, cell):
+    """The test file of ``cell``'s driver, and the cell's configuration."""
     workload = registry.workload(cell)
-    return control.controls_for(workload["driver"], registry.config(workload["config"]))
+    return registry.driver_tests(workload["driver"]), registry.config(workload["config"])
 
 
-CONTROLS = [(cell, name) for cell in CELLS for name in _controls(harness.Registry(), cell)]
+def controls_for(registry, cell) -> dict:
+    """The controls, by name, that take the place of the entry ``cell``'s driver drives."""
+    tests, config = _driver_tests(registry, cell)
+    return tests.controls(config)
+
+
+CONTROLS = [(cell, name) for cell in CELLS for name in controls_for(harness.Registry(), cell)]
 
 
 @pytest.mark.parametrize(("cell", "name"), CONTROLS)
 def test_control_is_not_correct(tiny, cell, name):
-    res = run_tiny(tiny, cell, program=_controls(tiny[0], cell)[name])
+    res = run_tiny(tiny, cell, program=controls_for(tiny[0], cell)[name])
     assert not res["correct"], res["checks"]
 
 
@@ -47,103 +55,10 @@ def test_plain_directory_that_keeps_the_guarantees_is_correct(tiny):
     assert res["correct"], res["checks"]
 
 
-# -- faults of the placement entries ------------------------------------------
-
-def _flat(fault):
-    from rio_tpu_torch.entry import placement_step
-
-    previous = []
-
-    def step(cost, mass, cap, **kw):
-        if fault == "half":
-            n = cost.shape[0] // 2
-            seats, mean_cost, err = placement_step(cost[:n].contiguous(), mass[:n], cap, **kw)
-            return torch.cat([seats, torch.zeros_like(seats)]), mean_cost, err
-        seats, mean_cost, err = placement_step(cost, mass, cap, **kw)
-        if fault == "unchanged":  # answers with the previous call's state
-            previous.append(seats)
-            seats = previous[-2] if len(previous) > 1 else seats
-        elif fault == "altered":
-            seats = seats.clone()
-            seats[0] = (seats[0] + 1) % cap.shape[0]
-        return seats, mean_cost, err
-
-    return step
-
-
-def _hier(fault):
-    from rio_tpu_torch.parallel.hierarchical import chunked_hierarchical_assign
-
-    previous = []
-
-    def solve(obj_feat, node_feat, cap, alive, *, n_chunks, **kw):
-        if fault == "half":
-            n = obj_feat.shape[0] // 2
-            res = chunked_hierarchical_assign(obj_feat[:n], node_feat, cap, alive, n_chunks=n_chunks // 2, **kw)
-            seats = torch.cat([res.assignment, torch.zeros_like(res.assignment)])
-            return SimpleNamespace(assignment=seats, overflow=res.overflow)
-        res = chunked_hierarchical_assign(obj_feat, node_feat, cap, alive, n_chunks=n_chunks, **kw)
-        seats = res.assignment
-        if fault == "unchanged":  # answers with the previous call's state
-            previous.append(seats)
-            seats = previous[-2] if len(previous) > 1 else seats
-        elif fault == "altered":
-            seats = seats.clone()
-            seats[0] = (seats[0] + 1) % cap.shape[0]
-        return SimpleNamespace(assignment=seats, overflow=res.overflow)
-
-    return solve
-
-
-class _FaultyDirectory:
-    """The program's directory with one fault where its answers are produced."""
-
-    def __init__(self, inner, fault):
-        self._inner, self._fault = inner, fault
-        self._last: list = []
-
-    def __getattr__(self, name):
-        return getattr(self._inner, name)
-
-    async def assign_batch(self, ids):
-        self._last = list(ids)
-        if self._fault == "half":
-            half = len(ids) // 2
-            return [*await self._inner.assign_batch(ids[:half]), *[None] * (len(ids) - half)]
-        return await self._inner.assign_batch(ids)
-
-    async def rebalance(self, **kw):
-        if self._fault == "unchanged":
-            return 0
-        moved = await self._inner.rebalance(**kw)
-        if self._fault == "altered":
-            from rio_tpu_torch.object_placement import ObjectPlacementItem
-
-            oid = self._last[0]
-            seat = await self._inner.lookup(oid)
-            other = next(a for a in self._inner._node_order if a != seat)
-            await self._inner.update(ObjectPlacementItem(oid, other))
-        return moved
-
-
-def _churn(fault, config):
-    from rio_tpu_torch.object_placement.torch_placement import TorchObjectPlacement
-
-    return lambda: _FaultyDirectory(TorchObjectPlacement(device="cpu", **config["provider"]), fault)
-
-
-# The broken program of each driver, built from the fault and the cell's configuration.
-FAULTS = {
-    "place_flat": lambda fault, config: _flat(fault),
-    "place_hier": lambda fault, config: _hier(fault),
-    "directory_churn": _churn,
-}
-
-
 def broken_program(registry, cell, fault):
-    """``cell``'s timed path with ``fault``, chosen by the driver its workload file names."""
-    workload = registry.workload(cell)
-    return FAULTS[workload["driver"]](fault, registry.config(workload["config"]))
+    """``cell``'s timed path with ``fault``, from the test file of the driver its workload file names."""
+    tests, config = _driver_tests(registry, cell)
+    return tests.broken(fault, config)
 
 
 @pytest.mark.parametrize("fault", ["unchanged", "half", "altered"])
@@ -158,7 +73,7 @@ def test_a_broken_timed_path_is_not_correct(tiny, cell, fault):
 def test_control_fails_at_the_cell_size(card, cell, name):
     """On the card, at the cell's own size, on three seeds; prints each run's numbers."""
     registry = harness.Registry()
-    program = _controls(registry, cell)[name]
+    program = controls_for(registry, cell)[name]
     for seed in (2**31 + 11, 2**31 + 12, 2**31 + 13):
         res = harness.run(cell, seed, 3.0, False, spec=SPEC, registry=registry, device=card,
                           t_start=time.perf_counter(), program=program)

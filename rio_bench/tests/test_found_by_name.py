@@ -1,5 +1,6 @@
 """The harness finds every configuration, cell, driver and metric by its name."""
 
+import hashlib
 import json
 import shutil
 
@@ -7,8 +8,8 @@ import pytest
 
 from rio_bench import harness
 
-from .test_controls import broken_program
-from .test_stages import check_stages
+from .test_controls import broken_program, controls_for
+from .test_stages import check_stages, stage_path
 from .tiny import REPO, SPEC, full_spec, make_tiny, run_tiny
 
 
@@ -139,3 +140,92 @@ def test_a_new_configuration_takes_the_faults_of_its_driver(new_configuration, f
     program = broken_program(new_configuration[0], NEW_CELL, fault)
     res = run_tiny(new_configuration, NEW_CELL, seconds=0.5, program=program)
     assert not res["correct"], res["checks"]
+
+
+NEW_DRIVER, NEW_DRIVER_CELL = "place_flat_copy", "flat-1m-1k.flat-copy"
+
+
+def _hashes(folder) -> dict:
+    return {str(p.relative_to(folder)): hashlib.sha256(p.read_bytes()).hexdigest()
+            for p in sorted(folder.rglob("*")) if p.is_file() and "__pycache__" not in p.parts}
+
+
+@pytest.fixture
+def new_driver(tmp_path):
+    """``(registry, spec)`` at CPU sizes of a copy of the benchmark with a driver and its cell added as files.
+
+    ``place_flat.py`` copied under a new name, its test file, one cell of
+    it, the cell's CPU sizes file and its entries in ``BENCHMARK.json``;
+    no file that the copy's benchmark folder already had is edited.
+    """
+    repo = tmp_path / "repo"
+    bench = repo / "rio_bench"
+    shutil.copytree(REPO / "rio_bench", bench, ignore=shutil.ignore_patterns("__pycache__"))
+    before = _hashes(bench)
+    shutil.copy(bench / "drivers" / "place_flat.py", bench / "drivers" / f"{NEW_DRIVER}.py")
+    shutil.copy(bench / "tests" / "drivers" / "place_flat.py", bench / "tests" / "drivers" / f"{NEW_DRIVER}.py")
+    workload = json.loads((bench / "workloads" / "flat-1m-1k.place.json").read_text())
+    workload["driver"] = NEW_DRIVER
+    (bench / "workloads" / f"{NEW_DRIVER_CELL}.json").write_text(json.dumps(workload))
+    sizes = bench / "tests" / "cpu_sizes" / "workloads"
+    shutil.copy(sizes / "flat-1m-1k.place.json", sizes / f"{NEW_DRIVER_CELL}.json")
+    spec = json.loads((REPO / "BENCHMARK.json").read_text())
+    spec["workloads"].append(
+        {"name": NEW_DRIVER_CELL, "config": "flat-1m-1k", "traffic": "flat-copy", "chips": 1, "why": "test"}
+    )
+    for m in spec["end_to_end"] + spec["per_layer"]:
+        if "flat-1m-1k.place" in m.get("workloads", ()):
+            m["workloads"].append(NEW_DRIVER_CELL)
+    (repo / "BENCHMARK.json").write_text(json.dumps(spec))
+    after = _hashes(bench)
+    assert {name: after[name] for name in before} == before
+    assert set(after) - set(before) == {
+        f"drivers/{NEW_DRIVER}.py", f"tests/drivers/{NEW_DRIVER}.py",
+        f"workloads/{NEW_DRIVER_CELL}.json", f"tests/cpu_sizes/workloads/{NEW_DRIVER_CELL}.json",
+    }
+    return make_tiny(tmp_path / "tiny", source=bench, spec=full_spec(repo))
+
+
+def test_a_new_driver_runs_correct(new_driver):
+    registry = new_driver[0]
+    assert registry.workload(NEW_DRIVER_CELL)["driver"] == NEW_DRIVER
+    assert hasattr(registry.driver(NEW_DRIVER), "Driver")
+    res = run_tiny(new_driver, NEW_DRIVER_CELL, seconds=0.5)
+    assert res["correct"], res["checks"]
+    assert set(res["metrics"]) == {"setup_s", "placements_per_s"}
+
+
+def test_a_new_driver_takes_its_own_control(new_driver):
+    controls = controls_for(new_driver[0], NEW_DRIVER_CELL)
+    assert set(controls) == {"fp8"}
+    res = run_tiny(new_driver, NEW_DRIVER_CELL, seconds=0.5, program=controls["fp8"])
+    assert not res["correct"], res["checks"]
+
+
+@pytest.mark.parametrize("fault", ["unchanged", "half", "altered"])
+def test_a_new_driver_takes_its_own_faults(new_driver, fault):
+    program = broken_program(new_driver[0], NEW_DRIVER_CELL, fault)
+    res = run_tiny(new_driver, NEW_DRIVER_CELL, seconds=0.5, program=program)
+    assert not res["correct"], res["checks"]
+
+
+def test_a_new_driver_reports_its_stages(new_driver):
+    check_stages(new_driver, NEW_DRIVER_CELL)
+
+
+LOOKUPS = {
+    "controls": controls_for,
+    "faults": lambda registry, cell: broken_program(registry, cell, "half"),
+    "stages": stage_path,
+}
+
+
+@pytest.mark.parametrize("lookup", LOOKUPS)
+def test_a_driver_without_its_test_file_is_refused(tiny, lookup):
+    registry = tiny[0]
+    shutil.copy(registry.root / "drivers" / "place_flat.py", registry.root / "drivers" / "place_bare.py")
+    workload = json.loads((registry.root / "workloads" / "flat-1m-1k.place.json").read_text())
+    workload["driver"] = "place_bare"
+    (registry.root / "workloads" / "flat-1m-1k.bare.json").write_text(json.dumps(workload))
+    with pytest.raises(FileNotFoundError, match="tests/drivers/place_bare.py"):
+        LOOKUPS[lookup](registry, "flat-1m-1k.bare")

@@ -12,23 +12,27 @@ from rio_bench import harness
 
 from .tiny import REPO
 
+# Every driver, every metric reader and every driver's test file, found by glob.
 LOAD_ALL = """
 import json, sys
 from rio_bench import control, harness
 r = harness.Registry()
-spec = json.load(open("BENCHMARK.json"))
-for w in spec["workloads"]:
-    r.driver(r.workload(w["name"])["driver"])
-for m in spec["per_layer"]:
-    r.metric(m["name"])
-r.driver("directory_churn")
+for path in sorted((r.root / "drivers").glob("*.py")):
+    r.driver(path.stem)
+for path in sorted((r.root / "metrics").glob("*.py")):
+    r.metric(path.stem)
+for path in sorted((r.root / "tests" / "drivers").glob("*.py")):
+    r.driver_tests(path.stem)
 import rio_tpu_torch.entry, rio_tpu_torch.parallel.hierarchical
 import rio_tpu_torch.object_placement.torch_placement, rio_tpu_torch.registry
 print(json.dumps(sorted({name.split(".")[0] for name in sys.modules})))
 """
+# Every module of the plain reference, found by glob.
 LOAD_REFERENCE = """
-import json, sys
-import rio_bench.reference.flat, rio_bench.reference.hier, rio_bench.reference.directory
+import importlib, json, sys
+from pathlib import Path
+for path in sorted(Path("rio_bench/reference").glob("*.py")):
+    importlib.import_module("rio_bench.reference" + ("" if path.stem == "__init__" else "." + path.stem))
 print(json.dumps(sorted({name.split(".")[0] for name in sys.modules})))
 """
 

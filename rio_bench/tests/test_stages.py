@@ -7,11 +7,15 @@ from rio_bench.trace import Span, Traced
 
 from .tiny import SPEC, run_tiny
 
-# Each driver's path: the prefix of its stage metrics, and the four stages every cell of it reports.
-STAGES = {
-    "place_flat": ("flat_stage_ms.", ("k_build", "row_check", "round", "repair")),
-    "place_hier": ("hier_stage_ms.", ("coarse", "bucket", "fine", "map_back")),
-}
+
+def stage_path(registry, cell) -> tuple[str, tuple[str, ...]]:
+    """The prefix of ``cell``'s stage metrics and the stages every cell of its driver reports.
+
+    Read from the driver's test file, ``tests/drivers/<driver>.py`` (``stages``).
+    """
+    path = registry.driver_tests(registry.workload(cell)["driver"]).stages
+    assert path is not None, f"the driver of {cell!r} names no stages"
+    return path
 
 
 def span_metrics(spec, cell) -> list[str]:
@@ -23,7 +27,7 @@ def span_metrics(spec, cell) -> list[str]:
 def check_stages(tiny, cell) -> None:
     """A tiny traced run of ``cell`` reads each of its stage metrics, in ms, above 0."""
     registry, spec = tiny
-    prefix, path = STAGES[registry.workload(cell)["driver"]]
+    prefix, path = stage_path(registry, cell)
     names = span_metrics(spec, cell)
     assert all(n.startswith(prefix) for n in names), names
     assert {prefix + stage for stage in path} <= set(names), names

@@ -74,10 +74,14 @@ def make_tiny(tmp_path, *, source: Path = REPO / "rio_bench", spec: dict = SPEC)
     """``(registry, spec)`` of the benchmark's folder ``source`` copied at CPU sizes.
 
     Every configuration and every cell of ``spec`` takes the file of its
-    name under ``source/tests/cpu_sizes/``.
+    name under ``source/tests/cpu_sizes/``. Each driver's test file
+    (``tests/drivers/<driver>.py``) goes along, so that the copy's registry
+    finds its own.
     """
     root = Path(tmp_path) / "rio_bench"
     shutil.copytree(source, root, ignore=shutil.ignore_patterns("__pycache__", "tests"))
+    shutil.copytree(Path(source) / "tests" / "drivers", root / "tests" / "drivers",
+                    ignore=shutil.ignore_patterns("__pycache__"))
     for config in spec["configs"]:
         _apply(root, source, "configs", config["name"], "config")
     for cell in spec["workloads"]:

@@ -91,19 +91,16 @@ def rank_within_group(
 
     Returns ``(order, sorted_group_keys, rank_sorted)``: elements in the
     stable order of ``keys``, and each one's rank within its run of equal
-    ``group_keys`` (default: ``keys``). The JAX version's
-    ``associative_scan(max)`` of run starts is ``cummax`` here.
+    ``group_keys`` (default: ``keys``). ``group_keys`` must not decrease
+    along that order (as ``keys // 2`` of composite keys does), so each
+    run's start is a left ``searchsorted`` of the sorted groups: one
+    parallel search, in place of the JAX version's ``associative_scan(max)``
+    of run starts, which on CUDA is a one-block scan.
     """
     order = torch.argsort(keys, stable=True)
     sorted_groups = (keys if group_keys is None else group_keys)[order]
     pos = torch.arange(keys.shape[0], device=keys.device)
-    is_start = torch.cat(
-        [
-            torch.ones(1, dtype=torch.bool, device=keys.device),
-            sorted_groups[1:] != sorted_groups[:-1],
-        ]
-    )
-    group_start = torch.cummax(torch.where(is_start, pos, 0), dim=0).values
+    group_start = torch.searchsorted(sorted_groups, sorted_groups)
     return order, sorted_groups, (pos - group_start).to(torch.int32)
 
 

@@ -208,7 +208,13 @@ def exact_quota_repair(
     n_rows = math.prod(idx.shape[:-1])
     idx2 = idx.reshape(n_rows, n)
     cell = torch.arange(n_rows, device=dev)[:, None] * m + idx2  # (rows, n) int64
-    counts = torch.bincount(cell.reshape(-1), minlength=n_rows * m).view(n_rows, m)
+    flat_cell = cell.reshape(-1)
+    # scatter_add_ into the known cells: bincount on CUDA waits on the host.
+    counts = (
+        torch.zeros(n_rows * m, dtype=torch.int64, device=dev)
+        .scatter_add_(0, flat_cell, torch.ones_like(flat_cell))
+        .view(n_rows, m)
+    )
     scaled = expected_counts.reshape(n_rows, m).float().clamp_min(0.0)
     # NO global rescale to sum n here: multiplying every column by
     # n/sum(scaled) perturbs each by the fp32 summation error, and at
@@ -233,7 +239,6 @@ def exact_quota_repair(
 
     # Within-column rank: keep iff rank < quota[cell]. With prefer_keep,
     # sort by (cell, not-preferred) so preferred objects take low ranks.
-    flat_cell = cell.reshape(-1)
     if prefer_keep is None:
         order, sorted_cell, rank = rank_within_group(flat_cell)
     else:

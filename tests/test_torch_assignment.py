@@ -25,6 +25,44 @@ def test_rank_within_group_equals_jax(grouped):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
+def _rank_by_cummax(keys, group_keys=None):
+    """The former form: each run's start as the running max of start positions."""
+    order = torch.argsort(keys, stable=True)
+    sorted_groups = (keys if group_keys is None else group_keys)[order]
+    pos = torch.arange(keys.shape[0])
+    is_start = torch.cat(
+        [torch.ones(1, dtype=torch.bool), sorted_groups[1:] != sorted_groups[:-1]]
+    )
+    start = torch.cummax(torch.where(is_start, pos, 0), dim=0).values
+    return order, sorted_groups, (pos - start).to(torch.int32)
+
+
+def _groups(case):
+    rng = np.random.default_rng(7)
+    if case == "one_run":
+        return np.full(100_000, 3)
+    if case == "distinct":
+        return rng.permutation(100_000) - 50_000
+    n = {"n1": 1, "n2": 2, "n100000": 100_000}[case]
+    return rng.integers(-8, 9, n)
+
+
+@pytest.mark.parametrize("case", ["n1", "n2", "n100000", "one_run", "distinct"])
+@pytest.mark.parametrize("grouped", [False, True])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_rank_within_group_equals_the_cummax_form(case, grouped, dtype):
+    groups = torch.from_numpy(_groups(case)).to(dtype)
+    if grouped:
+        bit = torch.from_numpy(np.random.default_rng(8).random(groups.shape[0]) < 0.5)
+        keys = groups * 2 + bit.to(dtype)
+        got, want = ta.rank_within_group(keys, groups), _rank_by_cummax(keys, groups)
+    else:
+        got, want = ta.rank_within_group(groups), _rank_by_cummax(groups)
+    assert got[2].dtype == torch.int32
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
 @pytest.mark.parametrize("with_load", [False, True])
 def test_greedy_balanced_assign_equals_jax(with_load):
     rng = np.random.default_rng(1)

@@ -7,6 +7,7 @@ torch = pytest.importorskip("torch")
 
 import importlib  # noqa: E402
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from rio_tpu.ops import scaling as jscaling  # noqa: E402
@@ -120,6 +121,30 @@ def test_exact_quota_repair_equals_jax(case, prefer):
         None if keep is None else torch.from_numpy(keep),
     )
     assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("prefer", [False, True])
+def test_batched_exact_quota_repair_at_the_fine_stage_shape_equals_jax(prefer):
+    """32 groups of 25,600 rows over 32 members and the padding sentinel."""
+    rng = np.random.default_rng(9)
+    G, B, M = 32, 25_600, 32
+    n_real = rng.integers(B // 2, B + 1, G)
+    real = np.arange(B)[None, :] < n_real[:, None]
+    idx = np.where(real, rng.integers(0, M, (G, B)), M).astype(np.int32)
+    cap = (rng.random((G, M)) + 0.5).astype(np.float32)
+    cap[:4, :5] = 0.0  # dead members
+    expected = np.concatenate(
+        [cap / cap.sum(-1, keepdims=True) * n_real[:, None], (B - n_real)[:, None]], -1
+    ).astype(np.float32)
+    keep = rng.random((G, B)) < 0.5 if prefer else None
+    args = [jnp.asarray(idx), jnp.asarray(expected)] + ([jnp.asarray(keep)] if prefer else [])
+    want = np.asarray(jax.vmap(jsk.exact_quota_repair)(*args))
+    got = tsk.exact_quota_repair(
+        torch.from_numpy(idx), torch.from_numpy(expected),
+        None if keep is None else torch.from_numpy(keep),
+    )
+    assert got.shape == (G, B) and got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want)
 
 

@@ -16,7 +16,9 @@ the step that ``bench.py``'s solve tier times (``_solve_rate.step``):
 :func:`logdomain_placement_step` is the same step in the log domain: the
 solve is :func:`~rio_tpu_torch.ops.pallas_sinkhorn.pallas_sinkhorn` (one
 launch of the fused log-domain kernel per iteration on the card) and the
-rounding reads the potentials (:func:`round_from_potentials`).
+rounding reads the potentials (:func:`round_from_potentials`). Its spans
+are ``placement.step`` around ``logdomain.iterations``, ``logdomain.err``,
+``logdomain.round`` and ``placement.repair``.
 
 :func:`dryrun_multichip` is the counterpart of
 ``__graft_entry__.dryrun_multichip``: the sharded placement step over an
@@ -38,6 +40,7 @@ from .kernels.launch import impl_for
 from .ops.assignment import build_cost_matrix
 from .ops.cdf_round import cdf_round, chunk_quantiles
 from .ops.pallas_sinkhorn import pallas_sinkhorn
+from .ops.potential_round import potential_round_impl
 from .ops.scaling import scaling_core_auto
 from .ops.sinkhorn import (
     exact_quota_repair,
@@ -190,14 +193,22 @@ def logdomain_placement_step(
     round from the potentials (:func:`round_from_potentials`), then repair
     to the exact quotas of ``cap``. ``assignment`` and ``mean_cost`` are as
     in :func:`placement_step`; ``err`` is the solve's L1 column-marginal
-    error. Inputs move to the resolved device.
+    error. Inputs move to the resolved device. The step and its stages are
+    spans of :mod:`rio_tpu_torch.tracing`: ``placement.step`` around
+    ``logdomain.iterations`` (attributes ``impl`` and ``iterations``) and
+    ``logdomain.err`` (both in ``pallas_sinkhorn``), ``logdomain.round``
+    (attribute ``impl``: ``"kernel"`` where the potential-rounding kernel
+    rounds, ``"eager"`` where its twin does) and ``placement.repair``.
     """
     dev = resolve_device(device)
-    cost, mass, cap = (t.to(dev) for t in (cost, mass, cap))
-    res = pallas_sinkhorn(cost, mass, cap, eps=eps, n_iters=n_iters)
-    rounded = round_from_potentials(cost, res.f, res.g, eps, chunk=chunk)
-    assignment, mean_cost = repair_to_quota(rounded, cost, cap)
-    return assignment, mean_cost, res.err
+    with span("placement.step"):
+        cost, mass, cap = (t.to(dev) for t in (cost, mass, cap))
+        res = pallas_sinkhorn(cost, mass, cap, eps=eps, n_iters=n_iters)
+        with span("logdomain.round", impl=potential_round_impl(cost)):
+            rounded = round_from_potentials(cost, res.f, res.g, eps, chunk=chunk)
+        with span("placement.repair"):
+            assignment, mean_cost = repair_to_quota(rounded, cost, cap)
+        return assignment, mean_cost, res.err
 
 
 def entry(device=None):

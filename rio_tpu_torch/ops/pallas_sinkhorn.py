@@ -6,7 +6,9 @@ takes two reductions over the (objects x nodes) cost: a row log-sum-exp of
 (the ``g`` update). :func:`fused_iteration` does both in one sweep over C:
 on a CUDA tensor it launches the hand-written kernel
 ``kernels/csrc/logdomain_iteration.cu``; on a CPU tensor it runs the plain
-twin :func:`fused_iteration_ref`. :func:`pallas_sinkhorn` loops it.
+twin :func:`fused_iteration_ref`. :func:`pallas_sinkhorn` loops it inside
+the span ``logdomain.iterations`` and takes the column-marginal error inside
+``logdomain.err`` (:mod:`rio_tpu_torch.tracing`).
 
 The semantics are the Pallas kernel's, not ``torch.logsumexp``'s: each LSE
 is ``max + log(max(sum, 1e-30))`` with a non-finite max taken as 0, so a row
@@ -20,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels.launch import check_operands, impl_for, launch, parts
+from ..tracing import span
 from .sinkhorn import SinkhornResult, log_marginals, marginal_err, normalize_marginals
 
 _NEG_INF = float("-inf")
@@ -119,7 +122,10 @@ def pallas_sinkhorn(
     starts at 0 on every column, dead ones included, as in the unfused
     solve. The kernel masks ragged shapes itself, so nothing is padded:
     the JAX version's ``block_rows`` and ``interpret`` are TPU tiling knobs
-    and have no counterpart.
+    and have no counterpart. Its spans (:mod:`rio_tpu_torch.tracing`):
+    ``logdomain.iterations`` around the ``n_iters`` iterations (attributes
+    ``impl``, ``"kernel"`` or ``"eager"``, and ``iterations``), then
+    ``logdomain.err`` around the column-marginal error.
     """
     cost = cost.float().contiguous()
     n, m = cost.shape
@@ -127,6 +133,9 @@ def pallas_sinkhorn(
     log_a, log_b = log_marginals(a, b)
     f = torch.zeros(n, dtype=torch.float32, device=cost.device)
     g = torch.zeros(m, dtype=torch.float32, device=cost.device)
-    for _ in range(n_iters):
-        f, g = fused_iteration(cost, log_a, log_b, g, eps)
-    return SinkhornResult(f=f, g=g, err=marginal_err(cost, f, g, b, eps))
+    with span("logdomain.iterations", impl=impl_for(cost), iterations=n_iters):
+        for _ in range(n_iters):
+            f, g = fused_iteration(cost, log_a, log_b, g, eps)
+    with span("logdomain.err"):
+        err = marginal_err(cost, f, g, b, eps)
+    return SinkhornResult(f=f, g=g, err=err)

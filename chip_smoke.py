@@ -36,12 +36,18 @@ Phases, each printing one JSON line:
    cost matrix;
 9. ``logdomain_path`` — ``logdomain_placement_step`` at 1,048,576 x 1024 (eps 0.05,
    30 iterations, rounding in 65,536-row chunks) on the same problem: the kernel
-   launched 30 times and none of the scaling, K-build and CDF-rounding kernels, every
+   launched 30 times, the post-solve kernel and its finalize once each, and none of
+   the scaling, K-build and CDF-rounding kernels, every
    node at its quota of 1,024, mean cost < 0.25; it prints
-   the largest |g| difference to the main path's scaling solve (not bounded);
+   the largest |g| difference to the main path's scaling solve (not bounded); then
+   the post-solve kernel and its finalize against their plain twin
+   (``logdomain_post_round_ref``, ``marginal_err``) on the step's own f and g and on
+   g moved by 0.4 eps: seats agreeing >= 99.9%, err within the float32 summation
+   bound ``post_err_tol``, and with g moved an O(1) err within 1e-4 of the twin's;
 10. ``logdomain_vs_plain`` — at 262,144 x 1024, 30 iterations: the kernel path against
    the plain twin's path and the unfused ``sinkhorn``, |d| <= 1e-3 + 1e-3 |ref| on f
-   and g, assignments at quota, rows agreeing >= 99%;
+   and g, assignments (the kernel path's rounded by the post-solve kernel, the plain
+   paths' by its twin) at quota, rows agreeing >= 99%;
 11. ``times`` — CUDA-event medians: each kernel, its plain twin and one library
    yardstick that the port never calls (``torch.mv`` twice for the scaling kernel;
    two ``torch.logsumexp`` sweeps for the log-domain kernel), each over batches of
@@ -325,9 +331,10 @@ Phases, each printing one JSON line:
      ``ru_maxrss``, which includes the peak of this process, and the child's
      ``VmRSS`` at its end).
 
-Launch counts (``rio_tpu_torch.kernels.launch.launches``) name six hand kernels: the flat
-step's four (``fused_scaling_iteration``, ``fused_iteration``, ``cdf_round``, ``kbuild``),
-which a phase that says 0 holds at 0; ``coarse_scores``, which launches once in every
+Launch counts (``rio_tpu_torch.kernels.launch.launches``) name seven hand kernels: the flat
+steps' five (``fused_scaling_iteration``, ``fused_iteration``, ``cdf_round``, ``kbuild``, and
+``logdomain_post`` with its finalize, ``logdomain_post_finalize``), which a phase that says 0
+holds at 0; ``coarse_scores``, which launches once in every
 ``hierarchical_assign`` call on the card (the hierarchical, tracker, mesh and routed at-scale
 paths) and nowhere else; and ``potential_round``, which launches twice in every such call
 and in the directory's roundings from potentials of at most 32 nodes.
@@ -370,6 +377,22 @@ KBUILD_MAX_ULPS = {"f32": 0, "bf16": 0}
 # TOL_STEP (1 + |ref|) after 30.
 TOL_LOGDOMAIN = 1e-4
 TOL_LOGDOMAIN_STEP = 1e-3
+# The post-solve kernel's column error against marginal_err's where the error is O(1).
+RTOL_POST_ERR = 1e-4
+
+
+def post_err_tol(n: int, n_parts: int, warps_per_part: int) -> float:
+    """An absolute bound on |err - marginal_err| of the post-solve kernel where the plan's mass is 1.
+
+    Recursive float32 summation of positive terms errs by at most (k - 1) 2^-24 of
+    their sum, k the length of the chain: a lane's ceil(n / (w n_parts)) rows, the w
+    warps of a part, then the n_parts parts. marginal_err's reduction is bounded as
+    the kernel's, and each exponential adds 2^-22 (ex2.approx), so
+    |err - err_twin| <= 2 (k 2^-24 + 2^-22) sum_j col_j (tests/test_torch_logdomain_post_kernel.py).
+    """
+    k = -(-n // (warps_per_part * n_parts)) + warps_per_part + n_parts
+    return 2 * (k * 2.0**-24 + 2.0**-22)
+
 # The directory group: bench.py's _incremental_rate shape (3% of nodes dead).
 DIR_OBJ, DIR_NODES, DIR_KILL, DIR_MOVE_COST = 1 << 20, 1024, 30, 0.5
 STANDBY_OBJ = 65536
@@ -577,7 +600,8 @@ class _Member:
 
 
 # The flat step's hand kernels: no directory, hierarchical or runtime path reaches them.
-FLAT_KERNELS = ("fused_scaling_iteration", "fused_iteration", "cdf_round", "kbuild")
+FLAT_KERNELS = ("fused_scaling_iteration", "fused_iteration", "cdf_round", "kbuild", "logdomain_post",
+                "logdomain_post_finalize")
 
 
 def _reset_launches() -> None:
@@ -2451,15 +2475,16 @@ def main() -> int:
         placement_step,
         repair_to_quota,
         round_and_repair,
-        round_from_potentials,
     )
     from rio_tpu_torch import tracing
     from rio_tpu_torch.kernels import build
     from rio_tpu_torch.ops import cdf_round as CR
     from rio_tpu_torch.ops import kbuild as KB
+    from rio_tpu_torch.ops import logdomain_post as LP
     from rio_tpu_torch.ops import scaling as S
     from rio_tpu_torch.ops.pallas_sinkhorn import fused_iteration, fused_iteration_ref, pallas_sinkhorn
     from rio_tpu_torch.ops.sinkhorn import (
+        block_quantiles,
         exact_quota_repair,
         log_marginals,
         marginal_err,
@@ -2566,7 +2591,7 @@ def main() -> int:
     check(eu <= RTOL_KERNEL and ev <= RTOL_KERNEL, f"full width: {eu}, {ev}")
 
     # The CDF-rounding kernel on that iteration's state, against its twin.
-    q = CR.chunk_quantiles(u_k, CHUNK)
+    q = block_quantiles(u_k > 0, CHUNK)
     launches_before = _launches()["cdf_round"]
     idx_k, res_k = CR.cdf_round(K, u_k, v_k, a, q)
     torch.cuda.synchronize()
@@ -2721,6 +2746,9 @@ def main() -> int:
     check(counts["kbuild"] == 0, "the log-domain path launched the K-build kernel")
     check(counts["coarse_scores"] == 0, "the log-domain path launched the coarse-score kernel")
     check(counts["potential_round"] == 0, "the log-domain path launched the potential-rounding kernel")
+    check(counts["logdomain_post"] == counts["logdomain_post_finalize"] == 1,
+          f"the log-domain path launched the post-solve kernel {counts['logdomain_post']} times and its "
+          f"finalize {counts['logdomain_post_finalize']}, want 1 and 1")
     check(ld_assignment.shape == (N_OBJ,), "log-domain assignment shape")
     loads = torch.bincount(ld_assignment.long(), minlength=N_NODES)
     check(loads.shape == (N_NODES,) and bool((loads == quota).all()),
@@ -2736,10 +2764,34 @@ def main() -> int:
     )
     live = torch.isfinite(ld_res.g) & torch.isfinite(sc_res.g)
     max_dg = float((ld_res.g[live] - sc_res.g[live]).abs().max())
+    del sc_res
+    # The post-solve kernel against its plain twin (the seats per 65,536-row block,
+    # then marginal_err) on the step's own f and g, where the error is summation
+    # noise, and on g moved by 0.4 eps, where each column misses its mass by O(1).
+    _, b_ld = normalize_marginals(mass, cap)
+    q_ld = block_quantiles(torch.isfinite(ld_res.f), CHUNK)
+    g_moved = ld_res.g + 0.02 * torch.randn(N_NODES, generator=gen, device=dev)
+    post_vs_twin = {}
+    for case, g_case in (("converged", ld_res.g), ("moved_g", g_moved)):
+        rows = LP.logdomain_post(cost, ld_res.f, g_case, q_ld, EPS)
+        err_k = float(LP.logdomain_post_finalize(rows, cost, ld_res.f, g_case, b_ld, EPS))
+        idx_t = LP.logdomain_post_round_ref(cost, ld_res.f, g_case, q_ld, EPS)
+        err_t = float(marginal_err(cost, ld_res.f, g_case, b_ld, EPS))
+        agree = float((rows.idx == idx_t).float().mean())
+        check(agree >= ROUND_ROW_AGREEMENT, f"post-solve kernel ({case}): seats agree on {agree}")
+        if case == "converged":  # the plan's mass is 1
+            tol = post_err_tol(N_OBJ, rows.col_parts.shape[0], 8)
+        else:
+            check(err_t > 0.1, f"moved g: the twin's err {err_t} is no O(1) violation")
+            tol = RTOL_POST_ERR * err_t
+        check(abs(err_k - err_t) <= tol,
+              f"post-solve kernel ({case}): err {err_k} against the twin's {err_t}, bound {tol}")
+        post_vs_twin[case] = {"row_agreement": agree, "err": err_k, "err_twin": err_t, "err_tol": tol}
+        del rows, idx_t
     emit("logdomain_path", n=N_OBJ, m=N_NODES, chunk=CHUNK, n_iters=N_ITERS, launches=ld_launches,
          quota=quota, mean_cost=ld_mean_cost, col_marginal_err=ld_err, first_step_s=ld_step_s,
-         peak_bytes=ld_peak, max_dg_vs_scaling=max_dg)
-    del ld_assignment, loads, sc_res
+         peak_bytes=ld_peak, max_dg_vs_scaling=max_dg, post_vs_twin=post_vs_twin)
+    del ld_assignment, loads, g_moved, q_ld
 
     # -- 10. log-domain path: kernel vs plain twin vs unfused sinkhorn --------
     pc, pm, pcap = make_problem(PLAIN_N_OBJ, N_NODES, seed=1, device=dev)
@@ -2751,11 +2803,13 @@ def main() -> int:
     res_u = sinkhorn(pc, pm, pcap, eps=EPS, n_iters=N_ITERS)
     pquota = PLAIN_N_OBJ // N_NODES
     vs = {}
-    asg_k, cost_k = repair_to_quota(round_from_potentials(pc, res_k.f, res_k.g, EPS, chunk=CHUNK), pc, pcap)
+    pq = block_quantiles(torch.isfinite(res_k.f), CHUNK)  # every row real: the same for each side
+    # The kernel path rounds with the post-solve kernel, the plain paths with its twin.
+    asg_k, cost_k = repair_to_quota(LP.logdomain_post(pc, res_k.f, res_k.g, pq, EPS).idx, pc, pcap)
     for name, f_r, g_r in (("twin", f_p, g_p), ("unfused", res_u.f, res_u.g)):
         ef = max_abs_close(res_k.f, f_r, TOL_LOGDOMAIN_STEP, f"30 iterations vs {name}: f")
         eg = max_abs_close(res_k.g, g_r, TOL_LOGDOMAIN_STEP, f"30 iterations vs {name}: g")
-        asg_r, cost_r = repair_to_quota(round_from_potentials(pc, f_r, g_r, EPS, chunk=CHUNK), pc, pcap)
+        asg_r, cost_r = repair_to_quota(LP.logdomain_post_round_ref(pc, f_r, g_r, pq, EPS), pc, pcap)
         for asg in (asg_k, asg_r):
             check(bool((torch.bincount(asg.long(), minlength=N_NODES) == pquota).all()), "quota")
         agree = float((asg_k == asg_r).float().mean())
@@ -2764,7 +2818,7 @@ def main() -> int:
                     "mean_cost": float(cost_r)}
     emit("logdomain_vs_plain", n=PLAIN_N_OBJ, m=N_NODES, tol=TOL_LOGDOMAIN_STEP,
          mean_cost_kernel=float(cost_k), **vs)
-    del pc, pm, pcap, res_k, res_u, f_p, g_p, asg_k, asg_r
+    del pc, pm, pcap, res_k, res_u, f_p, g_p, asg_k, asg_r, pq
 
     # -- 11. times at full width --------------------------------------------
     a, b = normalize_marginals(mass, cap)
@@ -2787,7 +2841,7 @@ def main() -> int:
             _, v = S.fused_scaling_iteration(K, a, b, v)
 
     def round_and_check(K, u, v):
-        rounded, res = CR.cdf_round(K, u, v, a, CR.chunk_quantiles(u, CHUNK))
+        rounded, res = CR.cdf_round(K, u, v, a, block_quantiles(u > 0, CHUNK))
         return rounded, res.sum()
 
     u, v, K, _ = S.fused_scaling_core(cost, mass, cap, eps=EPS, n_iters=N_ITERS)
@@ -2836,19 +2890,20 @@ def main() -> int:
         for _ in range(N_ITERS):
             _, g = fused_iteration(cost, log_a, log_b, g, EPS)
 
-    ld_rounded = round_from_potentials(cost, f_ld, g_ld, EPS, chunk=CHUNK)
+    ld_q = block_quantiles(torch.isfinite(f_ld), CHUNK)
+    ld_rows = LP.logdomain_post(cost, f_ld, g_ld, ld_q, EPS)
     _, b_unit = normalize_marginals(mass, cap)
     ld_stages_ms = {
         "solve_30_iters": cuda_median_ms(ld_solve, reps=5),
-        "rounding": cuda_median_ms(
-            lambda: round_from_potentials(cost, f_ld, g_ld, EPS, chunk=CHUNK), reps=5
+        "round_and_col_sums": cuda_median_ms(
+            lambda: LP.logdomain_post(cost, f_ld, g_ld, ld_q, EPS), reps=5
         ),
-        "quota_repair": cuda_median_ms(lambda: exact_quota_repair(ld_rounded, expected), reps=5),
+        "quota_repair": cuda_median_ms(lambda: exact_quota_repair(ld_rows.idx, expected), reps=5),
         "col_marginal_err": cuda_median_ms(
-            lambda: marginal_err(cost, f_ld, g_ld, b_unit, EPS), reps=5
+            lambda: LP.logdomain_post_finalize(ld_rows, cost, f_ld, g_ld, b_unit, EPS), reps=5
         ),
     }
-    del ld_rounded
+    del ld_rows, ld_q
     ld_step_ms = cuda_median_ms(
         lambda: logdomain_placement_step(
             cost, mass, cap, eps=EPS, n_iters=N_ITERS, chunk=CHUNK, device=dev

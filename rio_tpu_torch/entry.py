@@ -14,11 +14,13 @@ the step that ``bench.py``'s solve tier times (``_solve_rate.step``):
    (:func:`~rio_tpu_torch.ops.sinkhorn.exact_quota_repair`).
 
 :func:`logdomain_placement_step` is the same step in the log domain: the
-solve is :func:`~rio_tpu_torch.ops.pallas_sinkhorn.pallas_sinkhorn` (one
-launch of the fused log-domain kernel per iteration on the card) and the
-rounding reads the potentials (:func:`round_from_potentials`). Its spans
-are ``placement.step`` around ``logdomain.iterations``, ``logdomain.err``,
-``logdomain.round`` and ``placement.repair``.
+solve is the loop of :func:`~rio_tpu_torch.ops.pallas_sinkhorn.pallas_sinkhorn`
+(one launch of the fused log-domain kernel per iteration on the card), and
+the rounding from the potentials and the column-marginal error share one
+read of the cost (:func:`~rio_tpu_torch.ops.logdomain_post.logdomain_post`:
+on the card one launch of the post-solve kernel and one of its finalize).
+Its spans are ``placement.step`` around ``logdomain.iterations``,
+``logdomain.round``, ``logdomain.err`` and ``placement.repair``.
 
 :func:`dryrun_multichip` is the counterpart of
 ``__graft_entry__.dryrun_multichip``: the sharded placement step over an
@@ -38,11 +40,12 @@ import torch
 from .device import resolve_device
 from .kernels.launch import impl_for
 from .ops.assignment import build_cost_matrix
-from .ops.cdf_round import cdf_round, chunk_quantiles
-from .ops.pallas_sinkhorn import pallas_sinkhorn
-from .ops.potential_round import potential_round_impl
+from .ops.cdf_round import cdf_round
+from .ops.logdomain_post import logdomain_post, logdomain_post_finalize
+from .ops.pallas_sinkhorn import logdomain_iterations
 from .ops.scaling import scaling_core_auto
 from .ops.sinkhorn import (
+    block_quantiles,
     exact_quota_repair,
     normalize_marginals,
     plan_rounded_assign,
@@ -87,35 +90,6 @@ def row_marginal_err(K, u, v, mass, cap) -> torch.Tensor:
     return err
 
 
-def _by_row_chunks(n: int, chunk: int | None, round_rows) -> torch.Tensor:
-    """``round_rows(rows)`` over all ``n`` rows at once, or per block of ``chunk`` rows.
-
-    Per-chunk rounding ranks each chunk's rows on their own, as ``bench.py``
-    does. That equals global ranking only because every row here is real
-    with identical mass (each chunk spreads over the same marginals); mixed
-    masses or padding split across chunks would need an explicit rank
-    offset. ``n`` must be a multiple of ``chunk``.
-    """
-    if chunk is None:
-        return round_rows(slice(None))
-    if n % chunk:
-        raise ValueError(f"{n} rows are not a multiple of chunk={chunk}")
-    return torch.cat([round_rows(slice(i, i + chunk)) for i in range(0, n, chunk)])
-
-
-def round_from_potentials(cost, f, g, eps: float, *, chunk: int | None = None) -> torch.Tensor:
-    """CDF rounding of the plan ``exp((f + g - C)/eps)``, whole or in row chunks.
-
-    The log-domain step's rounding, over
-    :func:`~rio_tpu_torch.ops.sinkhorn.plan_rounded_assign`; chunks bound
-    its softmax and cumsum temporaries to ``chunk`` rows (see
-    :func:`_by_row_chunks`).
-    """
-    return _by_row_chunks(
-        cost.shape[0], chunk, lambda rows: plan_rounded_assign(cost[rows], f[rows], g, eps)
-    )
-
-
 def repair_to_quota(assignment, cost, cap):
     """Exact-quota repair to ``cap``'s share of the rows: ``(assignment, mean_cost)``."""
     expected = cap / cap.sum().clamp_min(1e-30) * assignment.shape[0]
@@ -128,13 +102,13 @@ def round_and_repair(cost, mass, cap, u, v, K, *, chunk: int | None = None):
 
     The rounding and the row check are one call of
     :func:`~rio_tpu_torch.ops.cdf_round.cdf_round`, which ranks each block
-    of ``chunk`` rows on its own (see :func:`_by_row_chunks`): on a CUDA K
+    of ``chunk`` rows on its own (``block_quantiles``): on a CUDA K
     one launch of the kernel, on a CPU K its plain twin. The check sums the
     residuals it wrote.
     """
     with span("placement.round", impl=impl_for(K)):
         a, _ = normalize_marginals(mass, cap)
-        rounded, res = cdf_round(K, u, v, a, chunk_quantiles(u, chunk))
+        rounded, res = cdf_round(K, u, v, a, block_quantiles(u > 0, chunk))
     with span("placement.row_check"):
         err = res.sum()
     with span("placement.repair"):
@@ -186,29 +160,38 @@ def logdomain_placement_step(
 ):
     """Place ``n`` objects on ``m`` nodes in the log domain: ``(assignment, mean_cost, err)``.
 
-    Solve with :func:`~rio_tpu_torch.ops.pallas_sinkhorn.pallas_sinkhorn`
-    (the JAX ``pallas_sinkhorn``, a drop-in for ``sinkhorn`` in the dense
-    log-domain solve-round-repair core of ``JaxObjectPlacement.rebalance``,
-    and the solver of ``tpu_pallas_check.py``'s ``pallas_logdomain`` lane),
-    round from the potentials (:func:`round_from_potentials`), then repair
+    Solve with the loop of
+    :func:`~rio_tpu_torch.ops.pallas_sinkhorn.pallas_sinkhorn` (the JAX
+    ``pallas_sinkhorn``, a drop-in for ``sinkhorn`` in the dense log-domain
+    solve-round-repair core of ``JaxObjectPlacement.rebalance``, and the
+    solver of ``tpu_pallas_check.py``'s ``pallas_logdomain`` lane), round
+    from the potentials with each row ranked within its block of ``chunk``
+    rows and take the column-marginal error, both in one read of the cost
+    (:func:`~rio_tpu_torch.ops.logdomain_post.logdomain_post`), then repair
     to the exact quotas of ``cap``. ``assignment`` and ``mean_cost`` are as
     in :func:`placement_step`; ``err`` is the solve's L1 column-marginal
     error. Inputs move to the resolved device. The step and its stages are
     spans of :mod:`rio_tpu_torch.tracing`: ``placement.step`` around
-    ``logdomain.iterations`` (attributes ``impl`` and ``iterations``) and
-    ``logdomain.err`` (both in ``pallas_sinkhorn``), ``logdomain.round``
-    (attribute ``impl``: ``"kernel"`` where the potential-rounding kernel
-    rounds, ``"eager"`` where its twin does) and ``placement.repair``.
+    ``logdomain.iterations`` (attributes ``impl`` and ``iterations``),
+    ``logdomain.round`` (the quantiles and the rows pass; attribute
+    ``impl``: ``"kernel"`` on a CUDA cost, where the post-solve kernel
+    runs, ``"eager"`` on the CPU, where its twin does), ``logdomain.err``
+    (the kernel's finalize, or the twin's ``marginal_err``) and
+    ``placement.repair``.
     """
     dev = resolve_device(device)
     with span("placement.step"):
         cost, mass, cap = (t.to(dev) for t in (cost, mass, cap))
-        res = pallas_sinkhorn(cost, mass, cap, eps=eps, n_iters=n_iters)
-        with span("logdomain.round", impl=potential_round_impl(cost)):
-            rounded = round_from_potentials(cost, res.f, res.g, eps, chunk=chunk)
+        c32 = cost.float().contiguous()
+        a, b = normalize_marginals(mass, cap)
+        f, g = logdomain_iterations(c32, a, b, eps=eps, n_iters=n_iters)
+        with span("logdomain.round", impl=impl_for(c32)):
+            rows = logdomain_post(c32, f, g, block_quantiles(torch.isfinite(f), chunk), eps)
+        with span("logdomain.err"):
+            err = logdomain_post_finalize(rows, c32, f, g, b, eps)
         with span("placement.repair"):
-            assignment, mean_cost = repair_to_quota(rounded, cost, cap)
-        return assignment, mean_cost, res.err
+            assignment, mean_cost = repair_to_quota(rows.idx, cost, cap)
+        return assignment, mean_cost, err
 
 
 def entry(device=None):

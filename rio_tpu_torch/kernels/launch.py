@@ -1,18 +1,20 @@
 """How the port calls a hand-written CUDA kernel: one table and one launch path for all of them.
 
 :data:`KERNELS` has one entry per ``csrc/<stem>.cu``: the name of the ops
-wrapper that calls it, its C entry points (``<stem>_launch``, and
-``<stem>_parts`` where the launch needs a workspace of that many rows)
-with their ``ctypes`` signatures, the name its errors give, and whether a
+wrapper that calls it, its C entry points (``<stem>_launch``;
+``<stem>_parts`` where the launch needs a workspace of that many rows;
+``<stem>_finalize`` where a second, separate launch reduces that
+workspace) with their ``ctypes`` signatures, the name its errors give, and whether a
 call with no rows counts as a launch. :data:`~rio_tpu_torch.kernels.build.SOURCES`
 is read from it.
 
 A wrapper checks its arguments (:func:`check_operands` for the float32
 vectors), asks :func:`impl_for` whether to run its plain twin or the
 kernel, and for the kernel allocates its outputs and calls :func:`launch`
-(after :func:`parts` where it needs a workspace). The entry points are
-bound at first use, once, under the build's lock. :func:`launches` reads
-the launch counts by wrapper name, :func:`reset_launches` zeroes them.
+(after :func:`parts` where it needs a workspace; a finalize wrapper
+calls :func:`finalize`). The entry points are bound at first use, once,
+under the build's lock. :func:`launches` reads the launch counts by
+wrapper name, :func:`reset_launches` zeroes them.
 """
 
 from __future__ import annotations
@@ -31,17 +33,22 @@ _OUT_INT = ctypes.POINTER(ctypes.c_int)
 class Kernel:
     """One ``csrc/<stem>.cu``: its entry points' argument types and how its calls count.
 
-    ``launch`` and ``parts`` are the argument types of ``<stem>_launch``
-    (its last one the stream) and ``<stem>_parts`` (its last one the
-    int it writes); both return a CUDA error code.
+    ``launch``, ``parts`` and ``finalize`` are the argument types of
+    ``<stem>_launch`` (its last one the stream), ``<stem>_parts`` (its
+    last one the int it writes) and ``<stem>_finalize`` (its last one the
+    stream); each returns a CUDA error code.
     """
 
-    def __init__(self, name, stem, what, launch, parts=None, *, count_empty=False):
+    def __init__(self, name, stem, what, launch, parts=None, finalize=None, *, count_empty=False):
         self.name, self.stem, self.what, self.count_empty = name, stem, what, count_empty
         self.signatures = {f"{stem}_launch": launch}
         if parts is not None:
             self.signatures[f"{stem}_parts"] = parts
-        self.entry_points = None  # (launch, parts), bound at first use
+        if finalize is not None:
+            self.signatures[f"{stem}_finalize"] = finalize
+        # The names its launches are counted under: its own, and its finalize's.
+        self.counted = (name,) if finalize is None else (name, f"{name}_finalize")
+        self.entry_points = None  # {"launch": ..., "parts": ..., "finalize": ...}, bound at first use
 
     def bind(self, lib: ctypes.CDLL) -> None:
         """Declare the entry points' signatures on the library just loaded."""
@@ -49,15 +56,14 @@ class Kernel:
             fn = getattr(lib, fn_name)
             fn.argtypes, fn.restype = argtypes, ctypes.c_int
 
-    def bound(self):
-        """``(launch, parts)``: the entry points, the library built and loaded at first use."""
+    def bound(self) -> dict:
+        """The entry points by suffix (``launch``, ``parts``, ``finalize``), the library loaded at first use."""
         if self.entry_points is None:
             from .build import load
 
             lib = load(self.stem)
-            self.entry_points = (
-                getattr(lib, f"{self.stem}_launch"), getattr(lib, f"{self.stem}_parts", None)
-            )
+            suffix = len(self.stem) + 1
+            self.entry_points = {fn_name[suffix:]: getattr(lib, fn_name) for fn_name in self.signatures}
         return self.entry_points
 
 
@@ -75,9 +81,12 @@ KERNELS = {k.name: k for k in (
            launch=(_P, _P, _P, _P, _L, _L, _L, _L, _P)),
     Kernel("potential_round", "potential_round", "potential-rounding kernel",
            launch=(_P, _P, _P, _P, _P, _L, _L, _L, _F, _P)),
+    Kernel("logdomain_post", "logdomain_post", "log-domain post-solve kernel",
+           launch=(_P, _P, _P, _P, _P, _P, _I, _F, _L, _L, _P), parts=(_P, _L, _L, _OUT_INT),
+           finalize=(_P, _I, _P, _P, _L, _P), count_empty=True),
 )}
 
-_launches = dict.fromkeys(KERNELS, 0)
+_launches = dict.fromkeys((name for k in KERNELS.values() for name in k.counted), 0)
 
 
 def impl_for(x: torch.Tensor) -> str:
@@ -112,7 +121,7 @@ def parts(name: str, like: torch.Tensor, *args) -> int:
     kernel = KERNELS[name]
     out = ctypes.c_int(0)
     with torch.cuda.device(like.device):
-        rc = kernel.bound()[1](*args, ctypes.byref(out))
+        rc = kernel.bound()["parts"](*args, ctypes.byref(out))
     if rc:
         raise RuntimeError(f"{kernel.stem}_parts failed: CUDA error {rc}")
     return out.value
@@ -125,13 +134,30 @@ def launch(name: str, like: torch.Tensor, *args, rows: int) -> None:
     unless it has no ``rows`` and the kernel launches nothing for none.
     """
     kernel = KERNELS[name]
-    fn = kernel.bound()[0]
-    with torch.cuda.device(like.device):
-        rc = fn(*args, torch.cuda.current_stream(like.device).cuda_stream)
+    rc = _on_stream(kernel.bound()["launch"], like, args)
     if rc:
         raise RuntimeError(f"{kernel.what} failed to launch: CUDA error {rc}")
     if rows > 0 or kernel.count_empty:
         _launches[name] += 1
+
+
+def finalize(name: str, like: torch.Tensor, *args) -> None:
+    """``<stem>_finalize(*args, stream)`` on ``like``'s card and its current stream, counted.
+
+    Counted under ``<name>_finalize``. Raises ``RuntimeError`` on a non-zero
+    CUDA error code.
+    """
+    kernel = KERNELS[name]
+    rc = _on_stream(kernel.bound()["finalize"], like, args)
+    if rc:
+        raise RuntimeError(f"{kernel.what}'s finalize failed to launch: CUDA error {rc}")
+    _launches[f"{name}_finalize"] += 1
+
+
+def _on_stream(fn, like: torch.Tensor, args) -> int:
+    """``fn(*args, stream)`` with ``like``'s card current: its CUDA error code."""
+    with torch.cuda.device(like.device):
+        return fn(*args, torch.cuda.current_stream(like.device).cuda_stream)
 
 
 def launches() -> dict[str, int]:

@@ -11,9 +11,11 @@ tensors its plain twin :func:`cdf_round_ref`; the step
 kernel has no counterpart among the JAX package's Pallas kernels; its sums
 run in another order than ``torch.cumsum``'s and ``torch.matmul``'s.
 
-Each row's quantile ``q`` comes from :func:`chunk_quantiles`, the ranks
-that :func:`~rio_tpu_torch.ops.sinkhorn.plan_rounded_assign_from_scaling`
-gives each block of ``chunk`` rows when it is called block by block.
+Each row's quantile ``q`` comes from
+:func:`~rio_tpu_torch.ops.sinkhorn.block_quantiles` on the real rows
+(``u > 0``): the ranks that
+:func:`~rio_tpu_torch.ops.sinkhorn.plan_rounded_assign_from_scaling` gives
+each block of ``chunk`` rows when it is called block by block.
 """
 
 from __future__ import annotations
@@ -21,24 +23,10 @@ from __future__ import annotations
 import torch
 
 from ..kernels.launch import K_DTYPES, check_operands, impl_for, launch
-from .sinkhorn import _quantiles, plan_rounded_assign_from_scaling, scaling_row_residuals
+from .sinkhorn import plan_rounded_assign_from_scaling, scaling_row_residuals
 
 # Rows per block of the plain twin (bounds its float32 temporaries).
 _REF_BLOCK_ROWS = 65536
-
-
-def chunk_quantiles(u: torch.Tensor, chunk: int | None = None) -> torch.Tensor:
-    """Each row's CDF quantile, ranked among the real rows (``u > 0``) of its block of ``chunk`` rows.
-
-    ``chunk=None`` ranks all rows together. The row count must be a
-    multiple of ``chunk``. Equals ``_quantiles`` called on each block.
-    """
-    is_real = u.float() > 0
-    if chunk is None:
-        return _quantiles(is_real)
-    if u.shape[0] % chunk:
-        raise ValueError(f"{u.shape[0]} rows are not a multiple of chunk={chunk}")
-    return _quantiles(is_real.view(-1, chunk)).view(-1)
 
 
 def _check_args(K, u, v, a, q) -> None:

@@ -6,9 +6,10 @@ takes two reductions over the (objects x nodes) cost: a row log-sum-exp of
 (the ``g`` update). :func:`fused_iteration` does both in one sweep over C:
 on a CUDA tensor it launches the hand-written kernel
 ``kernels/csrc/logdomain_iteration.cu``; on a CPU tensor it runs the plain
-twin :func:`fused_iteration_ref`. :func:`pallas_sinkhorn` loops it inside
-the span ``logdomain.iterations`` and takes the column-marginal error inside
-``logdomain.err`` (:mod:`rio_tpu_torch.tracing`).
+twin :func:`fused_iteration_ref`. :func:`logdomain_iterations` loops it
+inside the span ``logdomain.iterations``; :func:`pallas_sinkhorn` runs that
+loop and takes the column-marginal error inside ``logdomain.err``
+(:mod:`rio_tpu_torch.tracing`).
 
 The semantics are the Pallas kernel's, not ``torch.logsumexp``'s: each LSE
 is ``max + log(max(sum, 1e-30))`` with a non-finite max taken as 0, so a row
@@ -107,6 +108,25 @@ def fused_iteration(
     return f, g_new
 
 
+def logdomain_iterations(
+    cost: torch.Tensor, a: torch.Tensor, b: torch.Tensor, *, eps: float, n_iters: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``n_iters`` :func:`fused_iteration` from ``f = g = 0`` on normalized marginals: ``(f, g)``.
+
+    ``cost`` is float32 and contiguous. The loop is the span
+    ``logdomain.iterations`` (attributes ``impl``, ``"kernel"`` or
+    ``"eager"``, and ``iterations``).
+    """
+    n, m = cost.shape
+    log_a, log_b = log_marginals(a, b)
+    f = torch.zeros(n, dtype=torch.float32, device=cost.device)
+    g = torch.zeros(m, dtype=torch.float32, device=cost.device)
+    with span("logdomain.iterations", impl=impl_for(cost), iterations=n_iters):
+        for _ in range(n_iters):
+            f, g = fused_iteration(cost, log_a, log_b, g, eps)
+    return f, g
+
+
 def pallas_sinkhorn(
     cost: torch.Tensor,
     row_mass: torch.Tensor,
@@ -123,19 +143,13 @@ def pallas_sinkhorn(
     solve. The kernel masks ragged shapes itself, so nothing is padded:
     the JAX version's ``block_rows`` and ``interpret`` are TPU tiling knobs
     and have no counterpart. Its spans (:mod:`rio_tpu_torch.tracing`):
-    ``logdomain.iterations`` around the ``n_iters`` iterations (attributes
-    ``impl``, ``"kernel"`` or ``"eager"``, and ``iterations``), then
-    ``logdomain.err`` around the column-marginal error.
+    ``logdomain.iterations`` around the ``n_iters`` iterations
+    (:func:`logdomain_iterations`), then ``logdomain.err`` around the
+    column-marginal error.
     """
     cost = cost.float().contiguous()
-    n, m = cost.shape
     a, b = normalize_marginals(row_mass, col_capacity)
-    log_a, log_b = log_marginals(a, b)
-    f = torch.zeros(n, dtype=torch.float32, device=cost.device)
-    g = torch.zeros(m, dtype=torch.float32, device=cost.device)
-    with span("logdomain.iterations", impl=impl_for(cost), iterations=n_iters):
-        for _ in range(n_iters):
-            f, g = fused_iteration(cost, log_a, log_b, g, eps)
+    f, g = logdomain_iterations(cost, a, b, eps=eps, n_iters=n_iters)
     with span("logdomain.err"):
         err = marginal_err(cost, f, g, b, eps)
     return SinkhornResult(f=f, g=g, err=err)

@@ -123,6 +123,21 @@ def _quantiles(is_real: torch.Tensor) -> torch.Tensor:
     return torch.where(is_real, (rank + 0.5) / n_real, 0.5)
 
 
+def block_quantiles(is_real: torch.Tensor, chunk: int | None = None) -> torch.Tensor:
+    """Each row's quantile among the real rows of its block of ``chunk`` rows: ``_quantiles`` per block.
+
+    ``chunk=None`` ranks all rows together. The row count must be a
+    multiple of ``chunk``. Ranking each block on its own, as ``bench.py``
+    does, equals ranking all rows together only where every row is real
+    with the same mass (each block then spreads over the same marginals).
+    """
+    if chunk is None:
+        return _quantiles(is_real)
+    if is_real.shape[0] % chunk:
+        raise ValueError(f"{is_real.shape[0]} rows are not a multiple of chunk={chunk}")
+    return _quantiles(is_real.view(-1, chunk)).view(-1)
+
+
 def plan_rounded_assign(
     cost: torch.Tensor, f: torch.Tensor, g: torch.Tensor, eps: float = 0.05
 ) -> torch.Tensor:

@@ -22,11 +22,13 @@ from rio_tpu_torch.kernels import launch as L  # noqa: E402
 from rio_tpu_torch.ops import cdf_round as cr  # noqa: E402
 from rio_tpu_torch.ops import coarse_score as cs  # noqa: E402
 from rio_tpu_torch.ops import kbuild as kb  # noqa: E402
+from rio_tpu_torch.ops import logdomain_post as lp  # noqa: E402
 from rio_tpu_torch.ops import potential_round as pr  # noqa: E402
 from rio_tpu_torch.ops import scaling as ts  # noqa: E402
 
-# The package re-exports the function ``pallas_sinkhorn`` under the module's name.
+# The package re-exports the functions ``pallas_sinkhorn`` and ``sinkhorn`` under the modules' names.
 tps = importlib.import_module("rio_tpu_torch.ops.pallas_sinkhorn")
+ms = importlib.import_module("rio_tpu_torch.ops.sinkhorn")
 CSRC = Path(build.__file__).resolve().parent / "csrc"
 
 
@@ -59,7 +61,7 @@ def _calls(name, n, m, device="cpu"):
         return tps.fused_iteration, tps.fused_iteration_ref, (K, t(log_a), t(log_b), t(g), 0.07)
     if name == "cdf_round":
         Kb, u, vv = K.bfloat16(), t(a), t(np.where(b > 0, v, 0.0))
-        return cr.cdf_round, cr.cdf_round_ref, (Kb, u, vv, t(a / a.sum()), cr.chunk_quantiles(u))
+        return cr.cdf_round, cr.cdf_round_ref, (Kb, u, vv, t(a / a.sum()), ms.block_quantiles(u > 0))
     if name == "kbuild":
         cost = K.clone()
         cost[:, m // 2] = float("inf")  # a dead node
@@ -80,6 +82,22 @@ def _calls(name, n, m, device="cpu"):
             lambda *a: pr.potential_round_ref(*a, 0.05),
             (t(rng.random((n, m))), t(f), t(g), t(q)),
         )
+    if name == "logdomain_post":
+        f = rng.normal(size=n) * 0.1
+        f[::7] = -np.inf  # padding rows
+        g = rng.normal(size=m) * 0.1
+        g[::11] = -np.inf  # dead columns
+        q = (np.arange(n) + 0.5) / n
+        b = np.where(np.isfinite(g), 1.0, 0.0)
+
+        def post(cost, f, g, q, b):
+            rows = lp.logdomain_post(cost, f, g, q, 0.05)
+            return rows.idx, lp.logdomain_post_finalize(rows, cost, f, g, b / b.sum(), 0.05)
+
+        def post_ref(cost, f, g, q, b):
+            return lp.logdomain_post_round_ref(cost, f, g, q, 0.05), ms.marginal_err(cost, f, g, b / b.sum(), 0.05)
+
+        return post, post_ref, (t(rng.random((n, m))), t(f), t(g), t(q), t(b))
     groups = 4
     obj = t(rng.standard_normal((n, 16)))
     node = t(rng.standard_normal((16, groups * 8)) * 0.2)
@@ -107,7 +125,7 @@ def test_the_table_names_every_source_and_the_build_builds_the_table():
     stems = [k.stem for k in L.KERNELS.values()]
     assert sorted(stems) == sorted(p.stem for p in CSRC.glob("*.cu"))
     assert list(build.SOURCES) == stems
-    assert len(set(stems)) == len(stems) == 6
+    assert len(set(stems)) == len(stems) == 7
 
 
 @pytest.mark.parametrize("name", list(L.KERNELS))
@@ -127,7 +145,7 @@ def test_each_signature_matches_its_c_declaration(name):
             else:
                 want.append(ctypes.c_void_p)
         assert list(argtypes) == want, (fn_name, params)
-    assert set(kernel.signatures) <= {f"{kernel.stem}_launch", f"{kernel.stem}_parts"}
+    assert set(kernel.signatures) <= {f"{kernel.stem}_{e}" for e in ("launch", "parts", "finalize")}
 
 
 def test_binding_declares_every_entry_point_once():
@@ -153,7 +171,7 @@ def test_the_device_rule_reads_eager_on_the_cpu_and_refuses_other_devices():
 def test_the_registry_counts_every_kernel_by_its_wrappers_name():
     assert list(L.launches()) == [
         "fused_scaling_iteration", "fused_iteration", "cdf_round", "kbuild", "coarse_scores",
-        "potential_round",
+        "potential_round", "logdomain_post", "logdomain_post_finalize",
     ]
     L.reset_launches()
     assert set(L.launches().values()) == {0}
@@ -193,8 +211,9 @@ def test_each_wrapper_on_the_card_launches_once_near_its_twin(card, name):
     got = fn(*args)
     torch.cuda.synchronize()
     after = L.launches()
-    assert after[name] == before[name] + 1
-    assert all(after[k] == before[k] for k in after if k != name)
+    counted = L.KERNELS[name].counted  # the kernel's own count, and its finalize's
+    assert all(after[k] == before[k] + 1 for k in counted)
+    assert all(after[k] == before[k] for k in after if k not in counted)
     for x, y in zip(_outputs(got), _outputs(ref(*args)), strict=True):
         assert x.device == y.device and x.dtype == y.dtype and x.shape == y.shape
         if name == "potential_round":  # the eager chain's order, bit for bit

@@ -7,10 +7,11 @@ the benchmark's log-domain cell (``rio_bench/reference/flat_logdomain.py``) at
 the cell's CPU sizes; the reference with the cost stored in bfloat16, the
 cell's control, fails the same limits. The cases marked ``card`` run the step
 at the cell's size, 1,048,576 x 1,024: one step launches ``fused_iteration``
-30 times and no other kernel, its spans read ``impl="kernel"`` for the
-iterations and ``impl="eager"`` for the rounding, and it waits on the card
-nowhere under ``torch.cuda.set_sync_debug_mode("error")``; they skip without
-a CUDA device. On a card:
+30 times, the post-solve kernel ``logdomain_post`` and its finalize once each,
+and no other kernel, its spans read ``impl="kernel"`` for the iterations and
+the rounding, and it waits on the card nowhere under
+``torch.cuda.set_sync_debug_mode("error")``; they skip without a CUDA device.
+On a card:
 ``python -m pytest --noconftest -p no:cacheprovider tests/test_torch_logdomain_step.py``.
 """
 
@@ -44,7 +45,9 @@ SEAT_MISMATCH = 0.002
 # equal. 1e-4 is far above the float32 rounding of any sum; the control's gap
 # is 4.1e-5 to 1.9e-2 (seat_mismatch is what it fails on every cost).
 COST_GAP = 1e-4
-SPANS = ["logdomain.iterations", "logdomain.err", "logdomain.round", "placement.repair", "placement.step"]
+# The rounding's pass reads the cost once for the column sums too, so the error's
+# finalize follows it.
+SPANS = ["logdomain.iterations", "logdomain.round", "logdomain.err", "placement.repair", "placement.step"]
 
 
 def _problem(seed, k=0, n=N, m=M, device="cpu"):
@@ -148,7 +151,7 @@ def test_one_step_on_the_card_launches_the_log_domain_kernel_30_times_and_nothin
     _step(*full_size, chunk=65_536)
     torch.cuda.synchronize()
     launched = {name: count for name, count in L.launches().items() if count}
-    assert launched == {"fused_iteration": ITERS}
+    assert launched == {"fused_iteration": ITERS, "logdomain_post": 1, "logdomain_post_finalize": 1}
 
 
 @pytest.mark.card
@@ -159,7 +162,7 @@ def test_the_spans_on_the_card_name_the_kernel_and_the_eager_rounding(full_size)
     by_name = {s.name: s for s in spans}
     assert [s.name for s in spans] == SPANS
     assert by_name["logdomain.iterations"].attrs == {"impl": "kernel", "iterations": ITERS}
-    assert by_name["logdomain.round"].attrs == {"impl": "eager"}  # 1,024 columns: over the kernel's 32
+    assert by_name["logdomain.round"].attrs == {"impl": "kernel"}  # the post-solve kernel takes 1,024 columns
 
 
 @pytest.mark.card

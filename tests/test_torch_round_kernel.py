@@ -19,6 +19,7 @@ from rio_tpu_torch.ops import cdf_round as cr  # noqa: E402
 from rio_tpu_torch.ops import scaling as S  # noqa: E402
 from rio_tpu_torch.ops.sinkhorn import (  # noqa: E402
     _quantiles,
+    block_quantiles,
     exact_quota_repair,
     normalize_marginals,
     plan_rounded_assign_from_scaling,
@@ -75,7 +76,7 @@ def _eager_chain(cost, mass, cap, u, v, K, chunk):
 )
 def test_the_wrapper_rejects_what_the_kernel_does_not_take(case):
     K, u, v, a = _state(16, 8)
-    q = cr.chunk_quantiles(u)
+    q = block_quantiles(u > 0)
     expect = ValueError
     if case == "k_dtype":
         K, expect = K.double(), TypeError
@@ -109,12 +110,12 @@ def test_batched_quantiles_equal_the_per_chunk_quantiles(chunk):
     want = _quantiles(u > 0) if chunk is None else torch.cat(
         [_quantiles(u[i : i + chunk] > 0) for i in range(0, 1024, chunk)]
     )
-    assert torch.equal(cr.chunk_quantiles(u, chunk), want)
+    assert torch.equal(block_quantiles(u > 0, chunk), want)
 
 
 def test_chunk_quantiles_needs_whole_chunks():
     with pytest.raises(ValueError):
-        cr.chunk_quantiles(torch.ones(100), 64)
+        block_quantiles(torch.ones(100) > 0, 64)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
@@ -125,7 +126,7 @@ def test_the_twin_rounds_as_the_eager_chain_with_padding_and_dead_columns(dtype,
     K, u, v, a = _state(n, m, seed=m, dtype=dtype)
     blocks = [slice(None)] if chunk is None else [slice(i, i + chunk) for i in range(0, n, chunk)]
     want = torch.cat([plan_rounded_assign_from_scaling(K[r], u[r], v) for r in blocks])
-    idx, res = cr.cdf_round_ref(K, u, v, a, cr.chunk_quantiles(u, chunk))
+    idx, res = cr.cdf_round_ref(K, u, v, a, block_quantiles(u > 0, chunk))
     assert idx.dtype == torch.int32 and res.dtype == torch.float32
     assert torch.equal(idx, want)
     mass = (u > 0).float()
@@ -169,7 +170,7 @@ def test_the_round_span_reads_eager_on_the_cpu():
 @pytest.mark.parametrize("n", [1, 1000, 65537])
 def test_the_kernel_matches_its_twin_on_ragged_shapes(card, n, m, dtype):
     K, u, v, a = _state(n, m, seed=n + m, dtype=dtype, device=card)
-    q = cr.chunk_quantiles(u)
+    q = block_quantiles(u > 0)
     before = launches()["cdf_round"]
     idx, res = cr.cdf_round(K, u, v, a, q)
     torch.cuda.synchronize()
@@ -187,7 +188,7 @@ def test_the_kernel_takes_a_misaligned_k(card, dtype):
     K0, u, v, a = _state(n, m, seed=5, dtype=dtype, device=card)
     K = torch.empty(n * m + offset, dtype=dtype, device=card)[offset:].view(n, m)
     K.copy_(K0)
-    q = cr.chunk_quantiles(u)
+    q = block_quantiles(u > 0)
     idx, res = cr.cdf_round(K, u, v, a, q)
     idx_p, res_p = cr.cdf_round_ref(K, u, v, a, q)
     assert float((idx == idx_p).float().mean()) >= 0.999

@@ -207,4 +207,5 @@ def test_ramp_trace_times_the_ramps_decisions():
     seconds = [t for _, t in out["marks"]]
     assert seconds == sorted(seconds) and seconds[0] > 0
     assert out["launches"] == {"fused_scaling_iteration": 0, "fused_iteration": 0, "cdf_round": 0,
-                               "kbuild": 0, "coarse_scores": 0, "potential_round": 0}
+                               "kbuild": 0, "coarse_scores": 0, "potential_round": 0,
+                               "logdomain_post": 0, "logdomain_post_finalize": 0}
